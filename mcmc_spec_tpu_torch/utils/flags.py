@@ -1,0 +1,66 @@
+"""Pack-time accuracy dials (env-overridable), as in ``mcmc_spec_tpu.utils.flags``.
+
+Each dial is resolved ONCE, when a target is packed (``inference.target``),
+and stamped on the ``PackedTarget``; the kernels never read the environment.
+The env names and defaults are the JAX package's.
+"""
+from __future__ import annotations
+
+import os
+
+
+def median_iters() -> int:
+    """Radix-median pass count (``MCMC_SPEC_FAST_MEDIAN``): default 14, 31 = exact.
+
+    ``exact`` -> 31 (``np.median``-identical), ``1`` -> 20 (legacy alias),
+    any integer in [8, 31] selects that pass count.  Below 31 the kernels
+    return the midpoint of the remaining rank-search bracket.  The annealer's
+    median-only scoring always uses 31 regardless of this dial
+    (``inference.batched.optimizer_chi2_batch``).
+    """
+    raw = os.environ.get("MCMC_SPEC_FAST_MEDIAN", "")
+    if not raw:
+        return 14
+    if raw.lower() == "exact":
+        return 31
+    n = int(raw)
+    if n == 1:
+        return 20
+    if not 8 <= n <= 31:
+        raise ValueError(f"MCMC_SPEC_FAST_MEDIAN={raw!r}: use 'exact', 1, or 8..31")
+    return n
+
+
+def recip_newton() -> int:
+    """Newton steps of the magic-seed reciprocal (``MCMC_SPEC_FAST_RECIP``): default 2.
+
+    Used for the two continuum-renorm divides; ``exact`` or ``0`` means true
+    divides, ``1``..``3`` select the Newton depth.
+    """
+    raw = os.environ.get("MCMC_SPEC_FAST_RECIP", "")
+    if not raw:
+        return 2
+    if raw.lower() == "exact":
+        return 0
+    n = int(raw)
+    if not 0 <= n <= 3:
+        raise ValueError(f"MCMC_SPEC_FAST_RECIP={raw!r}: use 'exact' or 0..3")
+    return n
+
+
+def matmul_passes() -> int:
+    """``MCMC_SPEC_MATMUL_PASSES``: default 3, ``exact`` = 6 (values 1, 3, 6).
+
+    The JAX package emulates an f32 matmul with this many split-bf16 MXU
+    passes.  The port validates and stamps the dial for parity of the packed
+    target, but computes the full f32 product for every value.
+    """
+    raw = os.environ.get("MCMC_SPEC_MATMUL_PASSES", "")
+    if not raw:
+        return 3
+    if raw.lower() == "exact":
+        return 6
+    n = int(raw)
+    if n not in (1, 3, 6):
+        raise ValueError(f"MCMC_SPEC_MATMUL_PASSES={raw!r}: use 3, 6, or 'exact'")
+    return n
