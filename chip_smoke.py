@@ -14,7 +14,21 @@ Phases, each of which exits non-zero on failure:
 4. the two-stage fit on the koi2298-scale bench target: annealer (K3) on
    3,072 walkers, top third seeds the stretch sampler (K1), launch counts;
 5. throughput: the bench workload, 32,768 walkers, 128 timed steps, at the
-   production and the exact dials.
+   production and the exact dials;
+6. fleet: nine ragged koi2298-scale targets (nd 1792 ... 1408, 2 or 1
+   contrasts) padded to (1792, 2) and stacked, 4,096 walkers each: the fleet
+   spectrum-chi^2 (K4) and fused fleet posterior (K5) kernels against their
+   plain versions and K5 against K1 on the unpadded targets, then
+   ``run_fleet_ensemble`` (16 warm-up + 64 timed steps) on the composed
+   default (K4) and with ``MCMC_SPEC_FUSED_EVAL=1`` (K5), with launch counts
+   and the device busy share under ``torch.profiler``.
+
+Each kernel's ``bound_ms`` is the least time the card could take for the
+work of the timed call: the larger of its bytes (each input read once, the
+output written once) over 3.35 TB/s and its operations over the 67 TFLOP/s
+float32 peak outside the tensor cores (H100 SXM data sheet).  Operations are
+counted from this run's inputs: an add, multiply, compare, divide or exp is
+one, an FMA two; the model row counts only the non-zero blend weights.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -23,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -37,6 +52,10 @@ RTOL = 5e-5  # the JAX package's own kernel gate (tests/test_pallas_kernel.py)
 PROD_MAX_OUTSIDE_FRAC = 1e-3  # 14-pass midpoint median: >= 99.9% of walkers within tolerance
 EXACT = dict(median_iters=31, matmul_passes=6, recip_newton=0)
 PROD = dict(median_iters=14, matmul_passes=3, recip_newton=2)
+NTGT, NW_FLEET = 9, 4096
+FLEET_WARMUP, FLEET_TIMED = 16, 64
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_F32_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
 
 class PhaseError(RuntimeError):
@@ -103,6 +122,60 @@ def compare(got, ref, rtol=RTOL):
     outside = int((fin_g != fin_r).sum() + (diff > atol + rtol * np.abs(ref[fin])).sum())
     rel = float((diff / np.maximum(np.abs(ref[fin]), 1e-30)).max())
     return outside, rel, float(diff.max())
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def spectrum_ops(Wcomb, av, nd, iters, renorm=True):
+    """Operations of the spectrum block for these walkers (counting convention in the docstring)."""
+    NO = Wcomb.shape[-1]
+    B = Wcomb.numel() // NO
+    ops = 2 * int(torch.count_nonzero(Wcomb)) * nd  # model row over the non-zero weights
+    ops += 3 * int((av > 0).sum()) * nd  # extinction: multiply, exp, multiply
+    ops += 2 * B * nd * iters  # each median pass: a compare and a count per point
+    if iters >= 31:
+        ops += 2 * B * nd  # upper-middle refinement: a count and a masked min
+    # renorm fit (divide, multiply, 3 FMAs) + the renormed residual and its square sum
+    ops += B * nd * (19 if renorm else 5)
+    return ops
+
+
+def posterior_scalar_ops(B, tgt):
+    """The per-walker scalar part of K1/K5: tent weights, band fluxes, priors."""
+    nT, nG = tgt.D.shape[-3:-1]
+    NO, nm = nT * nG, tgt.mist_teff_nodes.shape[-1]
+    per = tgt.nspec * (14 * NO + 8 * nm + 2 * NO * tgt.n_contrast) + 2 * NO * tgt.n_phot + 64
+    return B * per
+
+
+def bound(nbytes_moved, ops):
+    """(bound_ms, bound_by): the larger of the memory and the arithmetic time."""
+    t_bytes, t_ops = nbytes_moved / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def device_busy(fn):
+    """(device busy share of the wall time, kernel launches, top kernels [(name, ms)]) of
+    ``fn()`` under ``torch.profiler``; (None, 0, []) where it reports no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(dev_us(e) for e in kernels)
+    if total <= 0:
+        return None, 0, []
+    top = sorted(kernels, key=dev_us, reverse=True)[:4]
+    return (total * 1e-6 / wall, sum(e.count for e in kernels),
+            [(e.key[:60], dev_us(e) * 1e-3) for e in top])
 
 
 def edge_walkers(truth, tgt):
@@ -186,6 +259,16 @@ def kernels_phase(dev):
         require(outside == 0, f"K3 renorm={renorm}: {outside} walkers outside tolerance")
 
     # times at the bench shapes: one stage-2 half batch; K3 in its stage-1 mode
+    # (the bounds are computed for the timed calls' inputs)
+    k1_bytes = nbytes(cloud, *ck.kernel_tables(prod).values()) + 4 * nhalf
+    k1_ops = spectrum_ops(Wcomb, av, nd, PROD["median_iters"]) + posterior_scalar_ops(nhalf, prod)
+    k3_bytes = nbytes(Wcomb, av, *args[2:8]) + 4 * nhalf
+    k3_ops = spectrum_ops(Wcomb, av, nd, 31, renorm=False)
+    bounds = {"k1": bound(k1_bytes, k1_ops), "k3": bound(k3_bytes, k3_ops)}
+    print(f"[bound K1 production] {nhalf} walkers: {bounds['k1'][0]:.5f} ms "
+          f"({bounds['k1'][1]}: {k1_ops:.4g} ops, {k1_bytes:.4g} bytes)")
+    print(f"[bound K3 renorm=False exact median] {nhalf} walkers: {bounds['k3'][0]:.5f} ms "
+          f"({bounds['k3'][1]}: {k3_ops:.4g} ops, {k3_bytes:.4g} bytes)")
     times = {}
     for label, t in (("production", prod), ("exact", exact)):
         k = cuda_ms(lambda: ck.log_posterior_fused(cloud, t))
@@ -200,7 +283,7 @@ def kernels_phase(dev):
         times[("k3", nw)] = (k, r)
         print(f"[time K3 renorm=False exact median] {nw} walkers: kernel {k:.4f} ms, "
               f"plain {r:.4f} ms")
-    return tgt, truth, {"k1_err": err_k1, "k3_err": err_k3, "times": times}
+    return tgt, truth, {"k1_err": err_k1, "k3_err": err_k3, "times": times, "bounds": bounds}
 
 
 def fit_phase(tgt, truth, dev):
@@ -271,6 +354,169 @@ def throughput_phase(tgt, truth, dev, k1_ms):
     return rates
 
 
+def build_fleet(dev):
+    """(padded stacked fleet, unpadded singles, truth): target i has nd = 1792 - 48 i,
+    2 contrasts for even i and 1 for odd i, and seed i."""
+    from mcmc_spec_tpu_torch.bench_target import build_bench_target
+    from mcmc_spec_tpu_torch.inference.fleet import stack_targets
+
+    members, singles = [], []
+    for i in range(NTGT):
+        kw = dict(nd=1792 - 48 * i, seed=i, n_contrast=2 if i % 2 == 0 else 1)
+        members.append(build_bench_target(torch.float32, device=dev, pad_nd=1792, pad_nc=2,
+                                          **kw)[0])
+        single, truth = build_bench_target(torch.float32, device=dev, **kw)
+        singles.append(single)
+    return stack_targets(members), singles, truth
+
+
+def fleet_wcomb(P, fleet):
+    """The fleet's blend weights [ntgt, nw, NO], as ``log_posterior_fleet`` forms them for K4."""
+    from mcmc_spec_tpu_torch.inference.batched import _forward_small
+    from mcmc_spec_tpu_torch.inference.fleet import target_views
+
+    return torch.stack([_forward_small(p, t)[4] for p, t in zip(P, target_views(fleet))])
+
+
+def check_fleet_kernels(name, fleet, P, max_outside):
+    """K5 and K4 against their plain versions on the card; returns their max abs errors."""
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+
+    got = ck.log_posterior_fleet_fused(P, fleet)
+    torch.cuda.synchronize()
+    ref = ck.log_posterior_fleet_fused_reference(P, fleet)
+    outside5, rel5, err5 = compare(got.flatten(), ref.flatten())
+    Wcomb, av = fleet_wcomb(P, fleet), P[..., fleet.nspec].contiguous()
+    got = ck.spectrum_chi2_fleet(Wcomb, av, fleet)
+    torch.cuda.synchronize()
+    ref = ck.spectrum_chi2_fleet_reference(Wcomb, av, fleet)
+    outside4, rel4, err4 = compare(got.flatten(), ref.flatten())
+    n = P.shape[0] * P.shape[1]
+    for k, outside, rel, err in (("K5", outside5, rel5, err5), ("K4", outside4, rel4, err4)):
+        print(f"[{k} {name}] {n} walkers: {outside} outside tolerance (allowed {max_outside}), "
+              f"max rel err {rel:.3e}, max abs err {err:.3e}")
+        require(outside <= max_outside, f"{k} {name}: {outside} walkers outside tolerance")
+    return err4, err5
+
+
+def fleet_run(fleet, coords, dev, fused):
+    """16 warm-up + 64 timed fleet steps on one route; returns the route's numbers."""
+    from mcmc_spec_tpu_torch.inference.fleet import init_fleet_ensemble, run_fleet_ensemble
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+
+    route = "fused (K5)" if fused else "composed (K4)"
+    if fused:
+        os.environ["MCMC_SPEC_FUSED_EVAL"] = "1"
+    else:
+        os.environ.pop("MCMC_SPEC_FUSED_EVAL", None)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = init_fleet_ensemble(coords, fleet, gen)
+    state, _, _ = run_fleet_ensemble(state, fleet, FLEET_WARMUP, thin=FLEET_WARMUP)
+    acc0 = int(state.n_accept)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, chain, lps = run_fleet_ensemble(state, fleet, FLEET_TIMED, thin=FLEET_TIMED)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    ntgt, nw, ndim = coords.shape
+    rate = FLEET_TIMED * ntgt * nw / dt
+    acc = (int(state.n_accept) - acc0) / (FLEET_TIMED * ntgt * nw)
+    print(f"[fleet {route}] {ntgt} x {nw} walkers x {FLEET_TIMED} steps: {dt:.4f} s, "
+          f"{rate:.1f} evals/s; step {1e3 * dt / FLEET_TIMED:.4f} ms; acceptance {acc:.3f}; "
+          f"launches {launches}")
+    require(chain.shape == (1, ntgt, nw, ndim), f"fleet {route}: chain shape {chain.shape}")
+    require(torch.isfinite(chain).all() and torch.isfinite(lps).all(),
+            f"fleet {route}: non-finite chain")
+    require(0.0 < acc < 1.0, f"fleet {route}: acceptance {acc} outside (0, 1)")
+    kernel = "log_posterior_fleet_fused" if fused else "spectrum_chi2_fleet"
+    other = "spectrum_chi2_fleet" if fused else "log_posterior_fleet_fused"
+    require(launches[kernel] > 0, f"fleet {route}: {kernel} was not launched")
+    require(launches[other] == 0, f"fleet {route}: {other} was launched")
+    busy, n_kernels, top = device_busy(lambda: run_fleet_ensemble(state, fleet, 4, thin=4))
+    share = "not measured (the profiler reported no device time)" if busy is None else \
+        f"{busy:.3f}, {n_kernels / 4:.0f} kernel launches per step"
+    print(f"[fleet {route}] device busy share under torch.profiler (4 steps): {share}; "
+          f"top kernels (ms): {[(k, round(v, 4)) for k, v in top]}")
+    os.environ.pop("MCMC_SPEC_FUSED_EVAL", None)
+    return {"rate": rate, "step_ms": 1e3 * dt / FLEET_TIMED, "launches": launches[kernel],
+            "busy": busy, "state": state}
+
+
+def fleet_phase(dev):
+    from mcmc_spec_tpu_torch.bench_target import init_walker_batch
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    fleet, singles, truth = build_fleet(dev)
+    print(f"[fleet] {NTGT} targets packed in {time.perf_counter() - t0:.1f} s: D "
+          f"{tuple(fleet.D.shape)}, nd true {fleet.n_data_true.tolist()}, nc true "
+          f"{fleet.n_contrast_true.tolist()}")
+    cloud = torch.stack([init_walker_batch(t, truth, NW_FLEET, seed=1 + i)
+                         for i, t in enumerate(singles)])
+    P = torch.cat([cloud, torch.stack([edge_walkers(truth, t) for t in singles])], dim=1)
+    exact, prod = dataclasses.replace(fleet, **EXACT), dataclasses.replace(fleet, **PROD)
+
+    err4, err5 = check_fleet_kernels("exact dials (31, 6, 0)", exact, P, 0)
+    check_fleet_kernels("production dials (14, 3, 2)", prod, P,
+                        int(PROD_MAX_OUTSIDE_FRAC * NTGT * NW_FLEET))
+
+    # padding is inert: K5 on the padded fleet against K1 on each unpadded target
+    got = ck.log_posterior_fleet_fused(P, exact)
+    ref = torch.stack([ck.log_posterior_fused(P[i], dataclasses.replace(s, **EXACT))
+                       for i, s in enumerate(singles)])
+    torch.cuda.synchronize()
+    outside, rel, err = compare(got.flatten(), ref.flatten())
+    print(f"[K5 padded vs K1 unpadded, exact dials] {P.shape[0] * P.shape[1]} walkers: "
+          f"{outside} outside tolerance, max rel err {rel:.3e}, max abs err {err:.3e}")
+    require(outside == 0, f"K5 padded vs K1 unpadded: {outside} walkers outside tolerance")
+
+    # one half-step of the fleet at production dials, alone, and its bound
+    half = cloud[:, : NW_FLEET // 2].contiguous()
+    Wh, avh = fleet_wcomb(half, prod), half[..., fleet.nspec].contiguous()
+    nh, nd = NTGT * NW_FLEET // 2, fleet.D.shape[-1]
+    times = {
+        "k4": (cuda_ms(lambda: ck.spectrum_chi2_fleet(Wh, avh, prod)),
+               cuda_ms(lambda: ck.spectrum_chi2_fleet_reference(Wh, avh, prod), reps=5)),
+        "k5": (cuda_ms(lambda: ck.log_posterior_fleet_fused(half, prod)),
+               cuda_ms(lambda: ck.log_posterior_fleet_fused_reference(half, prod), reps=5)),
+    }
+    tabs = ck.fleet_kernel_tables(prod)
+    k4_bytes = nbytes(Wh, avh, *(tabs[k] for k in ("D", "kd", "data", "inv_err", "VpinvT", "VT",
+                                                  "scal", "ranks"))) + 4 * nh
+    k4_ops = spectrum_ops(Wh, avh, nd, PROD["median_iters"])
+    k5_bytes = nbytes(half, *tabs.values()) + 4 * nh
+    k5_ops = k4_ops + posterior_scalar_ops(nh, prod)
+    bounds = {"k4": bound(k4_bytes, k4_ops), "k5": bound(k5_bytes, k5_ops)}
+    for k, name in (("k4", "K4"), ("k5", "K5")):
+        print(f"[time {name} production] one half-step, {NTGT} x {NW_FLEET // 2} walkers: kernel "
+              f"{times[k][0]:.4f} ms, plain {times[k][1]:.4f} ms, bound {bounds[k][0]:.5f} ms "
+              f"({bounds[k][1]})")
+
+    composed = fleet_run(prod, cloud, dev, fused=False)
+    fused = fleet_run(prod, cloud, dev, fused=True)
+    print(f"[fleet] step: composed {composed['step_ms']:.4f} ms (2 x K4 alone "
+          f"{2 * times['k4'][0]:.4f} ms), fused {fused['step_ms']:.4f} ms (2 x K5 alone "
+          f"{2 * times['k5'][0]:.4f} ms)")
+
+    # the routes agree: the composed run's final log-probs against K5 on the same walkers
+    st = composed["state"]
+    outside, rel, err = compare(ck.log_posterior_fleet_fused(st.coords, prod).flatten(),
+                                st.log_prob.flatten())
+    print(f"[fleet routes] K5 on the composed run's final walkers: {outside} outside tolerance "
+          f"(allowed {int(PROD_MAX_OUTSIDE_FRAC * NTGT * NW_FLEET)}), max rel err {rel:.3e}")
+    require(outside <= int(PROD_MAX_OUTSIDE_FRAC * NTGT * NW_FLEET),
+            f"fleet routes disagree on {outside} walkers")
+    med = st.coords.median(dim=1).values.cpu().numpy()
+    for i in (0, NTGT - 1):
+        print(f"[fleet] target {i}: walker medians T1 {med[i, 0]:.1f}, T2 {med[i, 1]:.1f}, "
+              f"plx {med[i, -1]:.6g} (truth {truth[0]:.0f}, {truth[1]:.0f}, {truth[-1]:.6g})")
+    return {"errs": (err4, err5), "times": times, "bounds": bounds, "composed": composed,
+            "fused": fused}
+
+
 def main() -> int:
     dev, smi = device_phase()
     build_phase()
@@ -278,22 +524,29 @@ def main() -> int:
     launches, stage1_s = fit_phase(tgt, truth, dev)
     k1_ms = {label: kres["times"][("k1", label)][0] for label in ("production", "exact")}
     rates = throughput_phase(tgt, truth, dev, k1_ms)
+    fres = fleet_phase(dev)
     print(f"[summary] {smi}: stage-2 {rates['production']:.1f} evals/s (production dials), "
-          f"{rates['exact']:.1f} evals/s (exact dials); stage-1 wall {stage1_s:.2f} s")
+          f"{rates['exact']:.1f} evals/s (exact dials); stage-1 wall {stage1_s:.2f} s; fleet "
+          f"{NTGT} x {NW_FLEET}: composed (K4) {fres['composed']['rate']:.1f} evals/s, "
+          f"fused (K5) {fres['fused']['rate']:.1f} evals/s")
     k1_ms_prod, k1_plain_prod = kres["times"][("k1", "production")]
     k3_ms, k3_plain = kres["times"][("k3", NWALK_BENCH // 2)]
+    rows = [
+        ("log_posterior_fused", "log_posterior_fused.cu", 743, launches["log_posterior_fused"],
+         kres["k1_err"], k1_ms_prod, k1_plain_prod, kres["bounds"]["k1"]),
+        ("spectrum_chi2", "spectrum_chi2.cu", 444, launches["spectrum_chi2"], kres["k3_err"],
+         k3_ms, k3_plain, kres["bounds"]["k3"]),
+        ("spectrum_chi2_fleet", "spectrum_chi2_fleet.cu", 345, fres["composed"]["launches"],
+         fres["errs"][0], *fres["times"]["k4"], fres["bounds"]["k4"]),
+        ("log_posterior_fleet_fused", "log_posterior_fleet_fused.cu", 1057,
+         fres["fused"]["launches"], fres["errs"][1], *fres["times"]["k5"], fres["bounds"]["k5"]),
+    ]
     print(json.dumps({"kernels": [
-        {"name": "log_posterior_fused", "route": "cuda",
-         "source": "mcmc_spec_tpu_torch/csrc/log_posterior_fused.cu",
-         "replaces": "mcmc_spec_tpu/ops/pallas_kernels.py:743",
-         "launches": launches["log_posterior_fused"], "max_abs_err": kres["k1_err"],
-         "ms": k1_ms_prod, "plain_ms": k1_plain_prod},
-        {"name": "spectrum_chi2", "route": "cuda",
-         "source": "mcmc_spec_tpu_torch/csrc/spectrum_chi2.cu",
-         "replaces": "mcmc_spec_tpu/ops/pallas_kernels.py:444",
-         "launches": launches["spectrum_chi2"], "max_abs_err": kres["k3_err"],
-         "ms": k3_ms, "plain_ms": k3_plain},
-    ]}))
+        {"name": name, "route": "cuda", "source": f"mcmc_spec_tpu_torch/csrc/{src}",
+         "replaces": f"mcmc_spec_tpu/ops/pallas_kernels.py:{line}", "launches": n,
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+         "library_ms": None}
+        for name, src, line, n, err, ms, plain_ms, b in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

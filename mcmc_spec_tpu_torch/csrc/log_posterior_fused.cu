@@ -2,204 +2,24 @@
 // block per walker.
 //
 // Replaces mcmc_spec_tpu/ops/pallas_kernels.py:log_posterior_fused (body
-// _posterior_kernel, with _tent_w and _spectrum_block).  The per-walker scalar
-// part (unpack, component scales, MIST logg(T), tent weights -> Wcomb, the
-// contrast and photometry fluxes, priors and bounds) runs in warp 0: it is a
-// few hundred flops over tables of 56-220 entries, so one warp keeps it off
-// the barriers the rest of the block waits on.  Wcomb goes to shared memory
-// and the whole block then runs the spectrum block (spectrum_block.cuh), which
-// bounds the kernel.  The grid has exactly B blocks: no walker padding.
-#include "spectrum_block.cuh"
+// _posterior_kernel).  The body is posterior_body.cuh, shared with the fleet
+// kernel K5; here the tables are the target's own, the median is the whole
+// row's and the spectrum chi^2 the mean.  The grid has exactly B blocks: no
+// walker padding.
+#include "posterior_body.cuh"
 
 namespace mcmc_spec {
 
-constexpr int kMaxSpec = 3;   // nspec <= 3
-constexpr int kMaxBands = 32;  // nc, npf <= 32: one lane per band
-constexpr int kMaxDim = 32;    // ndim <= 32: one lane per parameter
-
-struct PosteriorArgs {
-  const float* scal;       // [3]: tmin, tmax, med_data
-  const float* p;          // [B, ndim]
-  const float* D;          // [NO, nd]
-  const float* kd;         // [nd] CCM89 k at the data wavelengths
-  const float* data;       // [nd]
-  const float* inv_err;    // [nd]
-  const float* VpinvT;     // [3, nd]
-  const float* VT;         // [3, nd]
-  const float* tentT;      // [4, NO] Teff tent constants per grid point
-  const float* tentG;      // [4, NO] logg tent constants per grid point
-  const float* mist_tent;  // [4, nm]
-  const float* mist_vals;  // [2, nm]: logg, lum
-  const float* av_tent;    // [4, nav]
-  const float* av_vals;    // [2, nav]: mu, sig
-  const float* Fc;         // [NO, nc]
-  const float* Fp;         // [NO, npf]
-  const float* cobs;       // [2, nc]: cmag, cerr
-  const float* pobs;       // [4, npf]: pmag, perr, zero flux, k at cwl
-  const float* prior;      // [2, ndim]: gaussian mu (0 = off), sig
-  float* out;              // [B]
-  int ndim, NO, nd, nm, nav, nc, npf, nspec;
-  int fit_plx, dist_fit, rad_prior, iters, recip;
-  float spectrum_weight;
-  float spec_scale;  // spectrum_weight * (nc + npf, or nc without parallax)
-  float rad_sigma;
-};
-
-// _tent_w for node i of an [4, n] constant table (A, invB, C, invD)
-__device__ __forceinline__ float tent_w(const float* tc, int i, int n, float q) {
-  const float left = (q - tc[i]) * tc[n + i];
-  const float right = (tc[2 * n + i] - q) * tc[3 * n + i];
-  return clip01(min_nan(left, right));
-}
-
-// sum_i tent_w(tc, i, q) * vals[i] over the warp (at most two non-zero terms)
-__device__ __forceinline__ float warp_tent_dot(const float* tc, const float* vals, int n, float q) {
-  float acc = 0.0f;
-  for (int i = threadIdx.x & 31; i < n; i += 32) acc += tent_w(tc, i, n, q) * vals[i];
-  return warp_sum(acc);
-}
-
-__global__ void __launch_bounds__(kThreads) log_posterior_fused_kernel(const PosteriorArgs a) {
+__global__ void __launch_bounds__(kThreads)
+    log_posterior_fused_kernel(const float* __restrict__ scal, const float* __restrict__ p,
+                               const PosteriorTables t, const PosteriorConfig a,
+                               float spec_scale, float* __restrict__ out) {
   extern __shared__ float dyn[];
-  float* row = dyn;               // [nd] model row
-  float* wc = dyn + a.nd;         // [NO] Wcomb
-  float* swk = wc + a.NO;         // [nspec, NO] scaled per-component weights
-  __shared__ BlockScratch scratch;
-  __shared__ float s_cmag[kMaxSpec][kMaxBands];
-  __shared__ float s_chi_c, s_chi_p, s_lp;
-
   const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int n = a.nspec;
-  const float* pw = a.p + (size_t)b * a.ndim;
-  const float av = pw[n];
-
-  if (threadIdx.x < 32) {
-    // --- unpack (batched._unpack_batch); uniform across the warp
-    float teff[kMaxSpec], ratio[kMaxSpec], scale[kMaxSpec], lum[kMaxSpec];
-    float r1, plx;
-    for (int s = 0; s < n; ++s) teff[s] = pw[s];
-    if (a.fit_plx) {
-      r1 = pw[n + 1];
-      for (int s = 1; s < n; ++s) ratio[s] = pw[n + 1 + s];
-      plx = pw[2 * n + 1];
-    } else {
-      r1 = 1.0f;
-      for (int s = 1; s < n; ++s) ratio[s] = pw[n + s];
-      plx = 0.0f;
-    }
-    // --- component scales (batched._scales_batch)
-    if (a.fit_plx) {
-      const float base = sq(r1 * (float)6.957e10 * plx / (float)3.086e18);
-      scale[0] = base;
-      for (int s = 1; s < n; ++s) scale[s] = base * sq(ratio[s]);
-    } else {
-      scale[0] = 1.0f;
-      for (int s = 1; s < n; ++s) scale[s] = sq(ratio[s]);
-    }
-
-    // --- MIST logg(T), grid tent weights, Wcomb
-    for (int s = 0; s < n; ++s) {
-      const float logg = warp_tent_dot(a.mist_tent, a.mist_vals, a.nm, teff[s]);
-      lum[s] = a.rad_prior ? warp_tent_dot(a.mist_tent, a.mist_vals + a.nm, a.nm, teff[s]) : 0.0f;
-      for (int o = lane; o < a.NO; o += 32) {
-        const float wk = tent_w(a.tentT, o, a.NO, teff[s]) * tent_w(a.tentG, o, a.NO, logg);
-        const float sw = scale[s] * wk;
-        swk[s * a.NO + o] = sw;
-        wc[o] = s == 0 ? sw : wc[o] + sw;
-      }
-    }
-    __syncwarp();
-
-    // --- contrast magnitudes, one lane per band
-    if (lane < a.nc) {
-      for (int s = 0; s < n; ++s) {
-        float f = 0.0f;
-        for (int o = 0; o < a.NO; ++o) f += swk[s * a.NO + o] * a.Fc[o * a.nc + lane];
-        s_cmag[s][lane] = kMagPerLn * logf(max_nan(f, 1.17549435e-38f));
-      }
-    }
-    __syncwarp();
-    float term = 0.0f;
-    if (lane < a.nc) {
-      float contrast = 0.0f;
-      if (n == 2 || (n == 3 && lane < a.nc / 2)) contrast = s_cmag[1][lane] - s_cmag[0][lane];
-      else if (n == 3) contrast = s_cmag[2][lane] - s_cmag[0][lane];
-      term = sq((contrast - a.cobs[lane]) / a.cobs[a.nc + lane]);
-    }
-    const float chi_c = warp_sum(term);
-
-    // --- unresolved photometry, one lane per band
-    term = 0.0f;
-    if (lane < a.npf) {
-      float f = 0.0f;
-      for (int o = 0; o < a.NO; ++o) f += wc[o] * a.Fp[o * a.npf + lane];
-      float phot = kMagPerLn * logf(max_nan(f / a.pobs[2 * a.npf + lane], 1.17549435e-38f));
-      if (av > 0.0f) phot = phot + av * a.pobs[3 * a.npf + lane];
-      term = sq((phot - a.pobs[lane]) / a.pobs[a.npf + lane]);
-    }
-    const float chi_p = a.fit_plx ? warp_sum(term) : 0.0f;
-
-    // --- priors (batched.log_prior_batch)
-    float lp = 0.0f;
-    if (a.fit_plx) {
-      const float dist_pc = 1.0f / max_nan(plx, (float)1e-12);
-      const float logd = logf(max_nan(dist_pc, (float)1e-3));
-      const float mu = warp_tent_dot(a.av_tent, a.av_vals, a.nav, logd);
-      const float sig = warp_tent_dot(a.av_tent, a.av_vals + a.nav, a.nav, logd);
-      lp += -0.5f * sq((av - mu) / sig);
-    }
-    term = 0.0f;
-    if (lane < a.ndim && a.prior[lane] != 0.0f)
-      term = -0.5f * sq((pw[lane] - a.prior[lane]) / a.prior[a.ndim + lane]);
-    lp += warp_sum(term);
-
-    if (a.rad_prior) {
-      float mrad[kMaxSpec];
-      for (int s = 0; s < n; ++s) {
-        const float t2 = teff[s] * teff[s];
-        mrad[s] = sqrtf(lum[s] * (float)3.839e33 /
-                        ((float)(4.0 * 3.141592653589793 * 5.670374e-5) * (t2 * t2))) /
-                  (float)6.957e10;
-      }
-      if (a.fit_plx) lp += -0.5f * sq((r1 - mrad[0]) / (a.rad_sigma * mrad[0]));
-      for (int s = 1; s < n; ++s) {
-        const float mv = mrad[s] / mrad[0];
-        lp += -0.5f * sq((ratio[s] - mv) / (a.rad_sigma * mv));
-      }
-    }
-
-    // --- bounds (batched._bounds_ok_batch)
-    const float tmin = a.scal[0], tmax = a.scal[1];
-    bool ok = av >= 0.0f;
-    for (int s = 0; s < n; ++s) ok = ok && teff[s] <= tmax && teff[s] >= tmin;
-    for (int s = 1; s < n; ++s) ok = ok && ratio[s] >= 0.05f;
-    if (a.fit_plx) {
-      ok = ok && r1 >= 0.05f;
-      if (a.dist_fit) {
-        const float plx_hi = a.spectrum_weight == 0.0f ? 0.01f : 0.25f;
-        const float plx_lo = n <= 2 ? (float)(1.0 / 3000.0) : (float)(1.0 / 1000.0);
-        if (n <= 2) ok = ok && r1 <= 1.5f;
-        ok = ok && plx >= plx_lo && plx <= plx_hi;
-      }
-    }
-    if (lane == 0) {
-      s_chi_c = chi_c;
-      s_chi_p = chi_p;
-      s_lp = ok ? lp : -INFINITY;
-    }
-  }
-  __syncthreads();
-
-  float chi_spec = 0.0f;
-  if (a.spectrum_weight != 0.0f)
-    chi_spec = spectrum_block(wc, av, a.D, a.NO, a.nd, a.kd, a.data, a.inv_err, a.VpinvT, a.VT,
-                              a.scal[2], a.iters, true, a.recip, row, &scratch);
-  if (threadIdx.x == 0) {
-    const float cs = a.spec_scale * chi_spec + s_chi_c + s_chi_p;
-    const float ll = isnan(cs) ? -INFINITY : -0.5f * cs;
-    a.out[b] = isfinite(s_lp) ? s_lp + ll : -INFINITY;
-  }
+  // scal: tmin, tmax, med_data
+  const TargetScalars ts{scal[0], scal[1], scal[2], spec_scale, whole_row_stat(a.nd)};
+  const float v = posterior_eval(a, t, ts, p + (size_t)b * a.ndim, dyn);
+  if (threadIdx.x == 0) out[b] = v;
 }
 
 }  // namespace mcmc_spec
@@ -215,49 +35,22 @@ extern "C" int log_posterior_fused_launch(
   using namespace mcmc_spec;
   if (nspec < 1 || nspec > kMaxSpec || nc > kMaxBands || npf > kMaxBands || ndim > kMaxDim)
     return (int)cudaErrorInvalidValue;
-  PosteriorArgs a;
-  a.scal = (const float*)scal;
-  a.p = (const float*)p;
-  a.D = (const float*)D;
-  a.kd = (const float*)kd;
-  a.data = (const float*)data;
-  a.inv_err = (const float*)inv_err;
-  a.VpinvT = (const float*)VpinvT;
-  a.VT = (const float*)VT;
-  a.tentT = (const float*)tentT;
-  a.tentG = (const float*)tentG;
-  a.mist_tent = (const float*)mist_tent;
-  a.mist_vals = (const float*)mist_vals;
-  a.av_tent = (const float*)av_tent;
-  a.av_vals = (const float*)av_vals;
-  a.Fc = (const float*)Fc;
-  a.Fp = (const float*)Fp;
-  a.cobs = (const float*)cobs;
-  a.pobs = (const float*)pobs;
-  a.prior = (const float*)prior;
-  a.out = (float*)out;
-  a.ndim = ndim;
-  a.NO = NO;
-  a.nd = nd;
-  a.nm = nm;
-  a.nav = nav;
-  a.nc = nc;
-  a.npf = npf;
-  a.nspec = nspec;
-  a.fit_plx = fit_plx;
-  a.dist_fit = dist_fit;
-  a.rad_prior = rad_prior;
-  a.iters = iters;
-  a.recip = recip;
-  a.spectrum_weight = spectrum_weight;
-  a.spec_scale = spec_scale;
-  a.rad_sigma = rad_sigma;
-  const size_t smem = (size_t)(nd + (1 + nspec) * NO) * sizeof(float);
+  const PosteriorTables t{(const float*)D,        (const float*)kd,        (const float*)data,
+                          (const float*)inv_err,  (const float*)VpinvT,    (const float*)VT,
+                          (const float*)tentT,    (const float*)tentG,     (const float*)mist_tent,
+                          (const float*)mist_vals, (const float*)av_tent,  (const float*)av_vals,
+                          (const float*)Fc,       (const float*)Fp,        (const float*)cobs,
+                          (const float*)pobs,     (const float*)prior};
+  const PosteriorConfig a{ndim,    NO,       nd,        nm,    nav,   nc,
+                          npf,     nspec,    fit_plx,   dist_fit, rad_prior, iters,
+                          recip,   spectrum_weight, rad_sigma};
+  const size_t smem = posterior_smem(nd, NO, nspec);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         log_posterior_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  log_posterior_fused_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(a);
+  log_posterior_fused_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)scal, (const float*)p, t, a, spec_scale, (float*)out);
   return (int)cudaGetLastError();
 }

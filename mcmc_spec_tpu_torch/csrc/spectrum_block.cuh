@@ -1,17 +1,25 @@
 // Device helpers and the shared spectrum-statistics body (K2) of the fused
-// posterior (log_posterior_fused.cu, K1) and spectrum-chi^2 (spectrum_chi2.cu,
-// K3) kernels.
+// posterior (log_posterior_fused.cu, K1), spectrum-chi^2 (spectrum_chi2.cu,
+// K3), fleet spectrum-chi^2 (spectrum_chi2_fleet.cu, K4) and fused fleet
+// posterior (log_posterior_fleet_fused.cu, K5) kernels.
 //
 // Replaces mcmc_spec_tpu/ops/pallas_kernels.py:_spectrum_block (with its
 // helpers _row_order_stat_bits/_row_median_nonneg, _fast_recip/_div and
-// _dot_f32).  Design: one thread block per walker.  The walker's model row
+// _dot_f32) and the spectrum part of _spectrum_chi2_fleet_kernel and
+// _fleet_posterior_kernel.  The two differ in their statistics (SpecStat):
+// K1/K3 take the median of the whole row and the mean chi^2; K4/K5 take the
+// median at per-target ranks (r1, r2) of the true points and chi^2 =
+// sum * (1/n_true), so a padded target's sentinel points, which sit above
+// every real model value and carry inv_err = 0, change nothing.  Design: one
+// thread block per walker.  The walker's model row
 // (nd floats, 7 KB at nd = 1792) is built in dynamic shared memory; each
 // radix-median pass and the renorm/chi^2 passes re-read it from there.  The
 // grid projection D [NO, nd] (401 KB at the koi2298 shape) does not fit in a
 // block's shared memory: it is read from global memory, where the blocks in
 // flight keep it L2-resident.  Only the rows with a non-zero blend weight are
 // read (at most 4 per component), which is exact for the finite D of an
-// unpadded target.  What bounds a block, as measured on an H100 (PERF.md):
+// unpadded target, and keeps the 1e30 sentinel columns of a padded D out of
+// any zero-weight product.  What bounds a block, as measured on an H100 (PERF.md):
 // first the model-row build, whose few D loads per element sit behind a
 // data-dependent branch and are issued one after another; then the block-wide
 // count passes of the median (a shared-memory sweep plus a two-barrier
@@ -139,12 +147,30 @@ __device__ __forceinline__ float div_dial(float num, float den, int recip) {
   return recip == 0 ? num / den : __fmul_rn(num, fast_recip(den, recip));
 }
 
-// _row_median_nonneg for one row in shared memory: `iters` bisection passes
-// over the int32 bit pattern, each a block-wide count of bits <= mid.  Below
-// 31 passes the bracket midpoint is returned; at 31 the exact np.median, with
-// the upper-middle refinement for even nd.
-__device__ inline float row_median_nonneg(const float* row, int nd, int iters, BlockScratch* s) {
-  const int r1 = (nd + 1) / 2;  // 1-based rank of the lower middle
+// The statistics of the spectrum block: the median's 1-based ranks and the
+// chi^2 reduction.  r2 = 0 skips the upper-middle refinement (K1/K3 on an odd
+// row return the lower middle itself, as np.median); K4/K5 always refine,
+// and for an odd n_true (r2 == r1) return 0.5 * (x1 + x1) as their JAX
+// kernels do.
+struct SpecStat {
+  int r1, r2;
+  bool mean;    // chi^2 = sum / nd (K1, K3); otherwise sum * inv_n (K4, K5)
+  float inv_n;
+};
+
+// K1/K3: np.median of the whole row and the mean chi^2
+__device__ __forceinline__ SpecStat whole_row_stat(int nd) {
+  const int r1 = (nd + 1) / 2;
+  return SpecStat{r1, (nd & 1) ? 0 : r1 + 1, true, 0.0f};
+}
+
+// _row_order_stat_bits + the median refinement for one row in shared memory:
+// `iters` bisection passes over the int32 bit pattern for rank r1, each a
+// block-wide count of bits <= mid.  Below 31 passes the bracket midpoint is
+// returned; at 31 the exact order statistic, refined to rank r2 by a count
+// and a masked min.
+__device__ inline float row_median(const float* row, int nd, int r1, int r2, int iters,
+                                   BlockScratch* s) {
   int32_t lo = 0, hi = kF32InfBits;
   for (int it = 0; it < iters; ++it) {
     const int32_t mid = lo + ((hi - lo) >> 1);
@@ -155,7 +181,7 @@ __device__ inline float row_median_nonneg(const float* row, int nd, int iters, B
   }
   if (iters < 31) return __int_as_float(lo + ((hi - lo) >> 1));
   const float x1 = __int_as_float(hi);
-  if (nd & 1) return x1;
+  if (r2 <= 0) return x1;
   int c = 0;
   float m = INFINITY;
   for (int j = threadIdx.x; j < nd; j += blockDim.x) {
@@ -165,20 +191,21 @@ __device__ inline float row_median_nonneg(const float* row, int nd, int iters, B
   }
   const int cnt1 = block_sum_int(c, s);
   const float upper = block_min(m, s);
-  const float x2 = cnt1 >= r1 + 1 ? x1 : upper;
+  const float x2 = cnt1 >= r2 ? x1 : upper;
   return 0.5f * (x1 + x2);
 }
 
 // K2 (_spectrum_block) for one walker; block-wide, every thread returns the
-// mean chi^2.  wc: the walker's blend weights [NO] in shared memory; row:
-// nd floats of dynamic shared memory.
-__device__ inline float spectrum_block(const float* wc, float av, const float* __restrict__ D, int NO,
-                                int nd, const float* __restrict__ kd,
-                                const float* __restrict__ data,
-                                const float* __restrict__ inv_err,
-                                const float* __restrict__ VpinvT, const float* __restrict__ VT,
-                                float med_data, int iters, bool renorm, int recip, float* row,
-                                BlockScratch* s) {
+// chi^2.  wc: the walker's blend weights [NO] in shared memory; row: nd
+// floats of dynamic shared memory.
+__device__ inline float spectrum_block(const float* wc, float av, const float* __restrict__ D,
+                                       int NO, int nd, const float* __restrict__ kd,
+                                       const float* __restrict__ data,
+                                       const float* __restrict__ inv_err,
+                                       const float* __restrict__ VpinvT,
+                                       const float* __restrict__ VT, float med_data, int iters,
+                                       bool renorm, int recip, const SpecStat st, float* row,
+                                       BlockScratch* s) {
   const bool extinct = av > 0.0f;
   const float ak = kLn10x04 * av;
   for (int j = threadIdx.x; j < nd; j += blockDim.x) {
@@ -191,7 +218,7 @@ __device__ inline float spectrum_block(const float* wc, float av, const float* _
   }
   __syncthreads();
 
-  const float alpha = med_data / row_median_nonneg(row, nd, iters, s);
+  const float alpha = med_data / row_median(row, nd, st.r1, st.r2, iters, s);
 
   float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
   if (renorm) {
@@ -211,10 +238,11 @@ __device__ inline float spectrum_block(const float* wc, float av, const float* _
       const float fitted = c0 * VT[j] + c1 * VT[nd + j] + c2 * VT[2 * nd + j];
       target = div_dial(data[j], fitted, recip);
     }
-    const float r = (model - target) * inv_err[j];
+    const float r = (model - target) * inv_err[j];  // padded points: * 0 -> 0
     acc += r * r;
   }
-  return block_sum(acc, s) / (float)nd;
+  const float tot = block_sum(acc, s);
+  return st.mean ? tot / (float)nd : tot * st.inv_n;
 }
 
 }  // namespace mcmc_spec

@@ -25,7 +25,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int o = threadIdx.x; o < NO; o += blockDim.x) wc[o] = Wcomb[(size_t)b * NO + o];
   __syncthreads();
   const float chi = spectrum_block(wc, av[b], D, NO, nd, kd, data, inv_err, VpinvT, VT,
-                                   med_data[0], iters, renorm != 0, recip, row, &scratch);
+                                   med_data[0], iters, renorm != 0, recip, whole_row_stat(nd),
+                                   row, &scratch);
   if (threadIdx.x == 0) out[b] = chi;
 }
 

@@ -12,6 +12,10 @@ Dispatch, decided by device, dtype and target shape only:
   whole log-posterior in the fused kernel (``ops.cuda_kernels``, K1);
 * otherwise a CUDA float32 spectrum term runs the spectrum-chi^2 kernel (K3);
 * everything else runs the torch composition.
+
+Walkers of another dtype than the target are evaluated, as in JAX, in
+``torch.promote_types`` of the two (``target.common_dtype``, through a cached
+promoted copy of the target).
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import math
 
 import torch
 
-from mcmc_spec_tpu_torch.inference.target import PC_CM, RSUN_CM, PackedTarget
+from mcmc_spec_tpu_torch.inference.target import PC_CM, RSUN_CM, PackedTarget, common_dtype
 from mcmc_spec_tpu_torch.models.mist import LSUN, RSUN, SIGMA_SB
 from mcmc_spec_tpu_torch.ops import cuda_kernels
 from mcmc_spec_tpu_torch.ops.interp import tent_weights
@@ -269,6 +273,7 @@ def _fusable(tgt: PackedTarget) -> bool:
 
 def log_posterior_batch(p, tgt: PackedTarget, chi_spec=None):
     """Batched log-posterior: the sampler hot path (see module docstring)."""
+    p, tgt = common_dtype(p, tgt)
     if chi_spec is None and _fusable(tgt) and _on_cuda_f32(p):
         return cuda_kernels.log_posterior_fused(p, tgt)
     lp = log_prior_batch(p, tgt)
@@ -284,6 +289,7 @@ def optimizer_chi2_batch(p, tgt: PackedTarget, rad_sigma=None, chi_spec=None):
     median error, so stage 1 always uses the exact median whatever the
     target's production dial.
     """
+    p, tgt = common_dtype(p, tgt)
     teffs, av, r1, ratios, plx = _unpack_batch(p, tgt)
     if chi_spec is None and tgt.median_iters not in (0, 31):
         tgt = dataclasses.replace(tgt, median_iters=31)

@@ -50,13 +50,18 @@ def _draw_half(gen, m, n_comp, a, dtype, device):
 
 
 def _propose_accept(cur, lp_cur, other, z, idx, log_u, log_prob_fn):
-    """One half's stretch proposal and accept/reject; returns (cur, lp, n_accepted)."""
-    ndim = cur.shape[1]
-    partners = other[idx]
-    proposal = partners + z[:, None] * (cur - partners)
+    """One half's stretch proposal and accept/reject; returns (cur, lp, n_accepted).
+
+    ``cur`` [..., m, ndim] proposes against the partners ``other[..., idx, :]``;
+    ``z``, ``idx`` and ``log_u`` are [..., m].  A leading axis, such as the
+    fleet's target axis, is carried through.
+    """
+    ndim = cur.shape[-1]
+    partners = torch.take_along_dim(other, idx[..., None], dim=-2)
+    proposal = partners + z[..., None] * (cur - partners)
     logp_new = log_prob_fn(proposal)
     accept = log_u < (ndim - 1) * torch.log(z) + logp_new - lp_cur
-    cur = torch.where(accept[:, None], proposal, cur)
+    cur = torch.where(accept[..., None], proposal, cur)
     lp_cur = torch.where(accept, logp_new, lp_cur)
     return cur, lp_cur, accept.sum()
 

@@ -7,8 +7,13 @@ and ``Fp``, CCM89 ``k(lambda)``, the continuum-renorm matrices and the
 lookup-table nodes) and places them on one device.
 
 ``target_from_jax`` is the bridge from the JAX package: it takes a JAX
-``PackedTarget`` (any field ``np.asarray`` accepts) and returns this port's
-target with identical fields and meta, without importing JAX.
+``PackedTarget`` (any field ``np.asarray`` accepts), single or a stacked
+fleet, and returns this port's target with identical fields and meta,
+without importing JAX.
+
+Targets live on the card unless the caller asks for the CPU
+(``device="cpu"``).  ``promoted`` gives a target's float fields in a wider
+dtype, the way JAX promotes a float32 target against float64 walkers.
 """
 from __future__ import annotations
 
@@ -116,6 +121,10 @@ class PackedTarget:
     # f32 kernel operand tables, built on first kernel use (ops.cuda_kernels)
     _kernel_tables: Optional[dict] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    # targets derived from this one without copying data: promoted dtypes,
+    # a fleet's per-target views
+    _derived: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def ndim(self) -> int:
@@ -178,7 +187,7 @@ def pack_target(
     prior_mu: Optional[np.ndarray] = None,
     prior_sig: Optional[np.ndarray] = None,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
     pad_nd: Optional[int] = None,
     pad_nc: Optional[int] = None,
     rad_sigma_frac: Optional[float] = None,
@@ -283,13 +292,14 @@ def pack_target(
     )
 
 
-def target_from_jax(jax_target, device="cpu", dtype=torch.float32) -> PackedTarget:
+def target_from_jax(jax_target, device="cuda", dtype=torch.float32) -> PackedTarget:
     """This port's ``PackedTarget`` from a JAX-package ``PackedTarget``.
 
     Duck-typed: every data field goes through ``np.asarray`` (JAX arrays,
     numpy arrays and Python scalars all do), float fields are cast to
     ``dtype`` and the ``n_*_true`` counts to int32; the meta fields are
-    copied unchanged.
+    copied unchanged.  A stacked JAX fleet (``inference.fleet.stack_targets``,
+    a leading target axis on every field) comes across as a stacked fleet.
     """
     fields = {}
     for name in DATA_FIELDS:
@@ -299,3 +309,31 @@ def target_from_jax(jax_target, device="cpu", dtype=torch.float32) -> PackedTarg
     for name in META_FIELDS:
         fields[name] = getattr(jax_target, name)
     return PackedTarget(**fields)
+
+
+def promoted(tgt: PackedTarget, dtype: torch.dtype) -> PackedTarget:
+    """``tgt`` with every float field in ``dtype``, built once per dtype and cached."""
+    if tgt.D.dtype == dtype:
+        return tgt
+    if dtype not in tgt._derived:
+        tgt._derived[dtype] = dataclasses.replace(tgt, **{
+            name: getattr(tgt, name).to(dtype) for name in DATA_FIELDS if name not in INT_FIELDS})
+    return tgt._derived[dtype]
+
+
+def common_dtype(p: torch.Tensor, tgt: PackedTarget):
+    """(p, tgt) both in ``torch.promote_types(p.dtype, target dtype)``, as JAX promotes."""
+    dtype = torch.promote_types(p.dtype, tgt.D.dtype)
+    return p.to(dtype), promoted(tgt, dtype)
+
+
+def _target_view(fleet: PackedTarget, i: int) -> PackedTarget:
+    """Target ``i`` of a stacked fleet: every field sliced, nothing copied."""
+    return dataclasses.replace(fleet, **{name: getattr(fleet, name)[i] for name in DATA_FIELDS})
+
+
+def target_views(fleet: PackedTarget) -> list:
+    """Every target of a stacked fleet as a ``PackedTarget`` view, cached on the fleet."""
+    if "views" not in fleet._derived:
+        fleet._derived["views"] = [_target_view(fleet, i) for i in range(fleet.D.shape[0])]
+    return fleet._derived["views"]

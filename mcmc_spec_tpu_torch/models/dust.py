@@ -34,7 +34,7 @@ class AvProfile:
         d = np.array([1.0, 30000.0])
         return cls(d, np.full(2, av_mu), np.full(2, max(av_sig, SIGMA_FLOOR)))
 
-    def device_nodes(self, dtype=torch.float32, device="cpu"):
+    def device_nodes(self, dtype=torch.float32, device="cuda"):
         """(log_d_nodes, mu_nodes, sig_nodes) tensors for tent interpolation."""
         as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
         return as_t(np.log(self.dist_pc)), as_t(self.av_mu), as_t(self.av_sig)

@@ -111,7 +111,7 @@ class MistTable:
         """logg(Teff) by linear interpolation (reference ``get_logg``)."""
         return np.interp(teff, self._teff_nodes, self._logg_nodes)
 
-    def device_nodes(self, dtype=torch.float32, device="cpu"):
+    def device_nodes(self, dtype=torch.float32, device="cuda"):
         """(teff_nodes, logg_nodes, lum_nodes) tensors for tent interpolation."""
         as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
         return as_t(self._teff_nodes), as_t(self._logg_nodes), as_t(self._lum_nodes)

@@ -1,8 +1,10 @@
-"""Pack-time accuracy dials (env-overridable), as in ``mcmc_spec_tpu.utils.flags``.
+"""Pack-time accuracy dials and the fused-eval switch (env-overridable), as in
+``mcmc_spec_tpu.utils.flags``.
 
 Each dial is resolved ONCE, when a target is packed (``inference.target``),
 and stamped on the ``PackedTarget``; the kernels never read the environment.
-The env names and defaults are the JAX package's.
+``MCMC_SPEC_FUSED_EVAL`` is read per fleet evaluation, as in JAX.  The env
+names and defaults are the JAX package's.
 """
 from __future__ import annotations
 
@@ -64,3 +66,23 @@ def matmul_passes() -> int:
     if n not in (1, 3, 6):
         raise ValueError(f"MCMC_SPEC_MATMUL_PASSES={raw!r}: use 3, 6, or 'exact'")
     return n
+
+
+def _fused_eval_mode() -> str:
+    """Parse ``MCMC_SPEC_FUSED_EVAL`` once, for both the single-target and
+    fleet gates: ``auto``, ``1``/``force``/``pallas`` or ``0``/``off``/``xla``."""
+    mode = os.environ.get("MCMC_SPEC_FUSED_EVAL", "auto").lower()
+    if mode in ("1", "force", "pallas"):
+        return "force"
+    if mode in ("0", "off", "xla"):
+        return "off"
+    if mode != "auto":
+        raise ValueError(f"bad MCMC_SPEC_FUSED_EVAL={mode!r}")
+    return "auto"
+
+
+def fused_eval_forced() -> bool:
+    """True when the fused kernel is explicitly forced on: the fleet's fused
+    posterior (K5) is opt-in, the composition with the fleet spectrum kernel
+    (K4) is the default."""
+    return _fused_eval_mode() == "force"

@@ -89,7 +89,7 @@ def _assert_kernel_gate(got, ref, rtol=5e-5):
 @pytest.mark.parametrize("case", list(CASES))
 def test_composition_matches_jax_f64(case):
     jt = _jax_target(case, jnp.float64)
-    tt = target_from_jax(jt, dtype=torch.float64)
+    tt = target_from_jax(jt, device="cpu", dtype=torch.float64)
     P = _walkers(case, jt)
     Pj, Pt = jnp.asarray(P), torch.from_numpy(P)
     want = np.asarray(jax.jit(jb.log_posterior_batch)(Pj, jt))
@@ -110,13 +110,49 @@ def test_composition_matches_jax_f64(case):
 
 def test_forward_batch_matches_jax_f64():
     jt = _jax_target("triple", jnp.float64)
-    tt = target_from_jax(jt, dtype=torch.float64)
+    tt = target_from_jax(jt, device="cpu", dtype=torch.float64)
     P = _walkers("triple", jt, n=8)
     want = jax.jit(jb.forward_batch)(jnp.asarray(P), jt)
     got = batched.forward_batch(torch.from_numpy(P), tt)
     for a, b in zip(got, want):
         # contrasts of equal components cancel to ~1e-15, hence the atol
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", ["single", "binary", "triple", "no_plx", "padded"])
+def test_scalar_forward_matches_jax_f64(case):
+    from mcmc_spec_tpu.inference.posterior import forward as jax_forward
+    from mcmc_spec_tpu_torch.inference.posterior import forward
+
+    jt = _jax_target(case, jnp.float64)
+    tt = target_from_jax(jt, device="cpu", dtype=torch.float64)
+    for p in _walkers(case, jt, n=4)[:-1]:  # the last walker is far outside the grid
+        want = jax_forward(jnp.asarray(p), jt)
+        got = forward(torch.from_numpy(p), tt)
+        for name, a, b in zip(want._fields, got, want):
+            # contrasts of equal components cancel to ~1e-15, hence the atol
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12, atol=1e-13,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["binary", "triple", "rad_prior", "padded"])
+def test_float64_walkers_on_float32_target(case):
+    """JAX evaluates float64 walkers on a float32 target in float64; so does the port,
+    through one cached promoted copy of the target."""
+    jt = _jax_target(case, jnp.float32)
+    tt = target_from_jax(jt, device="cpu", dtype=torch.float32)
+    P = _walkers(case, jt, seed=4)
+    Pj, Pt = jnp.asarray(P), torch.from_numpy(P)
+    for jfn, fn in ((jb.log_posterior_batch, batched.log_posterior_batch),
+                    (jb.optimizer_chi2_batch, batched.optimizer_chi2_batch)):
+        want = np.asarray(jax.jit(jfn)(Pj, jt))
+        got = fn(Pt, tt)
+        assert got.dtype == torch.float64 and want.dtype == np.float64
+        np.testing.assert_array_equal(np.isfinite(got.numpy()), np.isfinite(want))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-10)
+    promoted = batched.common_dtype(Pt, tt)[1]
+    assert promoted is batched.common_dtype(Pt, tt)[1] and promoted.D.dtype == torch.float64
+    assert batched.common_dtype(Pt.float(), tt)[1] is tt
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +169,7 @@ FAST = dict(median_iters=14, matmul_passes=6, recip_newton=2)
 ])
 def test_fused_reference_matches_pallas_interpret(case, dials):
     jt = dataclasses.replace(_jax_target(case, jnp.float32), **dials)
-    tt = target_from_jax(jt, dtype=torch.float32)
+    tt = target_from_jax(jt, device="cpu", dtype=torch.float32)
     P = _walkers(case, jt, seed=1).astype(np.float32)
     ref = np.asarray(pk.log_posterior_fused(jnp.asarray(P), jt, interpret=True))
     before = dict(ck.LAUNCHES)
@@ -169,7 +205,7 @@ def test_spectrum_chi2_reference_matches_pallas_interpret(renorm, dials):
 
 @pytest.fixture
 def f32_target():
-    return target_from_jax(_jax_target("binary", jnp.float32), dtype=torch.float32)
+    return target_from_jax(_jax_target("binary", jnp.float32), device="cpu", dtype=torch.float32)
 
 
 class _Recorder:
@@ -221,7 +257,8 @@ def test_cuda_f32_dispatch(monkeypatch, f32_target):
 
     # padded targets ("xla" backend) and f64 walkers take the composition
     batched.log_posterior_batch(P, dataclasses.replace(prod, spectrum_backend="xla"))
-    f64 = target_from_jax(_jax_target("binary", jnp.float64), dtype=torch.float64)
+    f64 = target_from_jax(_jax_target("binary", jnp.float64), device="cpu",
+                          dtype=torch.float64)
     batched.log_posterior_batch(P.double(), f64)
     batched.optimizer_chi2_batch(P.double(), f64)
     assert len(k1.calls) == 1 and len(k3.calls) == 2

@@ -61,7 +61,7 @@ class _JaxChunk:
 @pytest.fixture(scope="module")
 def targets():
     jt, truth = jax_build_bench_target(jnp.float64, nd=256, grid_step=8.0)
-    return jt, target_from_jax(jt, dtype=torch.float64), truth
+    return jt, target_from_jax(jt, device="cpu", dtype=torch.float64), truth
 
 
 @pytest.fixture(scope="module")
@@ -182,7 +182,7 @@ def test_port_runs_without_jax():
         from mcmc_spec_tpu_torch.inference.anneal import init_walkers, run_anneal
         from mcmc_spec_tpu_torch.inference.batched import log_posterior_batch
         from mcmc_spec_tpu_torch.inference.stretch import init_ensemble, run_ensemble
-        tgt, truth = build_bench_target(torch.float32, nd=128, grid_step=16.0)
+        tgt, truth = build_bench_target(torch.float32, device="cpu", nd=128, grid_step=16.0)
         gen = torch.Generator().manual_seed(0)
         p0 = init_walkers(tgt, 12, float(truth[-1]), 0.05e-3, gen)
         params, chi, _ = run_anneal(tgt, p0, gen, steps=2)
@@ -190,6 +190,14 @@ def test_port_runs_without_jax():
         logp = lambda b: log_posterior_batch(b, tgt)
         st, chain, _ = run_ensemble(init_ensemble(seeds, logp, gen), logp, 4, thin=2)
         assert torch.isfinite(st.log_prob).all() and chain.shape == (2, 4, 6)
+        from mcmc_spec_tpu_torch.inference.fleet import (
+            init_fleet_ensemble, run_fleet_ensemble, stack_targets)
+        fleet = stack_targets([build_bench_target(torch.float32, device="cpu", nd=128 - 8 * i,
+                                                  grid_step=16.0, seed=i, pad_nd=128)[0]
+                               for i in range(2)])
+        fst = init_fleet_ensemble(torch.stack([seeds, seeds]), fleet, gen)
+        fst, fchain, _ = run_fleet_ensemble(fst, fleet, 2, thin=1)
+        assert torch.isfinite(fst.log_prob).all() and fchain.shape == (2, 2, 4, 6)
         leaked = [m for m, mod in sys.modules.items() if mod is not None
                   and (m == "jax" or m.startswith(("jax.", "mcmc_spec_tpu.")))]
         assert not leaked, leaked

@@ -23,8 +23,6 @@ from mcmc_spec_tpu_torch.models.mist import MistTable  # noqa: E402
 from mcmc_spec_tpu_torch.ops.photometry import FilterCurve  # noqa: E402
 from tests.helpers import make_setup  # noqa: E402
 
-# every field except the ones a test says differ
-OBS_FIELDS = ("cmag", "pmag")
 PACK_DIALS = ("median_iters", "matmul_passes", "recip_newton")
 
 
@@ -72,7 +70,7 @@ def test_pack_target_matches_jax(case):
                            phot_filters=st["pfilts"], mist=st["mist"],
                            av_profile=st["av_profile"], dtype=jnp.float64, **obs, **kw)
     got = pack_target(*(), **_port_inputs(st), data_wl_um=args[0], data_flux=args[1],
-                      data_err=args[2], dtype=torch.float64, **obs, **kw)
+                      data_err=args[2], dtype=torch.float64, device="cpu", **obs, **kw)
     _assert_fields_equal(got, want, rtol=1e-12)
     for name in META_FIELDS:
         if name != "eval_block":  # the port has no walker blocks
@@ -83,15 +81,38 @@ def test_pack_target_matches_jax(case):
 @pytest.mark.parametrize("nspec", [2, 3])
 def test_build_bench_target_matches_jax(nspec):
     want, truth_j = jax_build_bench_target(jnp.float64, nd=256, grid_step=8.0, nspec=nspec)
-    got, truth = build_bench_target(torch.float64, nd=256, grid_step=8.0, nspec=nspec)
+    got, truth = build_bench_target(torch.float64, device="cpu", nd=256, grid_step=8.0,
+                                    nspec=nspec)
     np.testing.assert_array_equal(truth, truth_j)
-    _assert_fields_equal(got, want, rtol=1e-12, skip=OBS_FIELDS)
-    # observed contrasts/photometry come from the port's own forward model
-    for name in OBS_FIELDS:
-        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
-                                   rtol=1e-6, err_msg=name)
+    # the observed contrasts/photometry come from the scalar forward model in both
+    _assert_fields_equal(got, want, rtol=1e-12)
     for name in PACK_DIALS:
         assert getattr(got, name) == getattr(want, name)
+
+
+@pytest.mark.parametrize("nspec,pad_nd,pad_nc", [(2, 300, 3), (3, 256, 4)])
+def test_padded_build_bench_target_matches_jax(nspec, pad_nd, pad_nc):
+    """A padded build equals JAX's, and consumes the RNG stream of its unpadded twin."""
+    want, _ = jax_build_bench_target(jnp.float64, nd=256, grid_step=8.0, nspec=nspec,
+                                     pad_nd=pad_nd, pad_nc=pad_nc)
+    got, _ = build_bench_target(torch.float64, device="cpu", nd=256, grid_step=8.0, nspec=nspec,
+                                pad_nd=pad_nd, pad_nc=pad_nc)
+    _assert_fields_equal(got, want, rtol=1e-12)
+    assert got.spectrum_backend == want.spectrum_backend == "xla"
+    plain, _ = build_bench_target(torch.float64, device="cpu", nd=256, grid_step=8.0, nspec=nspec)
+    assert torch.equal(got.pmag, plain.pmag)
+    if nspec == 2:  # a triple splits its contrasts on the padded count, as JAX does
+        assert torch.equal(got.cmag[: plain.n_contrast], plain.cmag)
+    assert got.n_data == pad_nd and got.n_contrast == pad_nc
+
+
+def test_entry_points_default_to_the_card():
+    """Targets live on the card unless the caller asks for the CPU."""
+    import inspect
+
+    for fn in (pack_target, target_from_jax, build_bench_target, MistTable.device_nodes,
+               AvProfile.device_nodes):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -116,14 +137,14 @@ def test_target_from_jax_accepts_host_numpy_fields():
     want, _ = jax_build_bench_target(jnp.float64, nd=256, grid_step=8.0,
                                      stage_on_device=False)
     assert isinstance(want.D, np.ndarray)
-    tt = target_from_jax(want, dtype=torch.float64)
+    tt = target_from_jax(want, device="cpu", dtype=torch.float64)
     _assert_fields_equal(tt, want, rtol=0)
 
 
 def test_replace_drops_kernel_tables():
     from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
 
-    tgt, _ = build_bench_target(torch.float32, nd=128, grid_step=16.0)
+    tgt, _ = build_bench_target(torch.float32, device="cpu", nd=128, grid_step=16.0)
     tabs = ck.kernel_tables(tgt)
     assert ck.kernel_tables(tgt) is tabs
     other = dataclasses.replace(tgt, cmag=tgt.cmag + 1.0)
