@@ -21,14 +21,24 @@ Phases, each of which exits non-zero on failure:
    plain versions and K5 against K1 on the unpadded targets, then
    ``run_fleet_ensemble`` (16 warm-up + 64 timed steps) on the composed
    default (K4) and with ``MCMC_SPEC_FUSED_EVAL=1`` (K5), with launch counts
-   and the device busy share under ``torch.profiler``.
+   and the device busy share under ``torch.profiler``;
+7. large nd: the segmented lane (K6 model with extinction, K7 k-ary median,
+   K8 renorm partials, K9 chi^2 residual) on the bench target at nd = 65,536
+   (the JAX package's ``largend`` cell) and 131,072: each kernel and the
+   composition against their plain versions (K7 bit for bit) at 1,024 + 5
+   walkers, again at the untileable odd nd = 65,535, the composition against
+   K3 at nd = 4,096 where the dispatch switches lanes, the two-stage fit at
+   nd = 65,536 through ``log_posterior_batch`` and ``optimizer_chi2_batch``,
+   the throughput of 2,048 walkers (16 warm-up + 128 timed steps), and a
+   crossover of the lanes at 1,024 walkers from nd = 4,096 to 65,536.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its bytes (each input read once, the
 output written once) over 3.35 TB/s and its operations over the 67 TFLOP/s
 float32 peak outside the tensor cores (H100 SXM data sheet).  Operations are
 counted from this run's inputs: an add, multiply, compare, divide or exp is
-one, an FMA two; the model row counts only the non-zero blend weights.
+one, an FMA two; the model row counts only the non-zero blend weights; a
+median count pass is a compare and an add per point and threshold.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -56,6 +66,11 @@ NTGT, NW_FLEET = 9, 4096
 FLEET_WARMUP, FLEET_TIMED = 16, 64
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+ND_FIT, ND_WIDE, ND_ODD = 65536, 131072, 65535  # the JAX largend cell and bench_large_nd.py
+NW_LARGE = 1024  # the JAX largend cell's evaluation batch
+LARGE_ANNEAL_STEPS, LARGE_SAMPLE_STEPS = 8, 64
+LARGE_WARMUP, LARGE_TIMED = 16, 128
+CROSSOVER_ND = (4096, 8192, 16384, 32768, 65536)
 
 
 class PhaseError(RuntimeError):
@@ -110,18 +125,21 @@ def cuda_ms(fn, reps=20, warmup=3):
 def compare(got, ref, rtol=RTOL):
     """(walkers outside tolerance, max relative error, max absolute error).
 
-    Outside = finiteness differs, or |got-ref| > atol + rtol*|ref| with
-    atol = 1e-4 * max|ref| over the finite walkers (the JAX kernel gate)."""
-    got = got.double().cpu().numpy()
-    ref = ref.double().cpu().numpy()
-    fin_g, fin_r = np.isfinite(got), np.isfinite(ref)
+    ``got`` and ``ref`` are [walkers] or [walkers, ...].  A walker is outside
+    when the finiteness of one of its values differs, or |got-ref| > atol +
+    rtol*|ref| with atol = 1e-4 * max|ref| over the finite values (the JAX
+    kernel gate)."""
+    got = got.double().reshape(got.shape[0], -1)
+    ref = ref.double().reshape(ref.shape[0], -1).to(got.device)
+    fin_g, fin_r = torch.isfinite(got), torch.isfinite(ref)
     fin = fin_g & fin_r
-    require(fin.any(), "no finite walker to compare")
-    atol = 1e-4 * np.abs(ref[fin]).max()
-    diff = np.abs(got[fin] - ref[fin])
-    outside = int((fin_g != fin_r).sum() + (diff > atol + rtol * np.abs(ref[fin])).sum())
-    rel = float((diff / np.maximum(np.abs(ref[fin]), 1e-30)).max())
-    return outside, rel, float(diff.max())
+    require(bool(fin.any()), "no finite value to compare")
+    mag = torch.where(fin, ref.abs(), torch.zeros_like(ref))
+    atol = 1e-4 * float(mag.max())
+    diff = torch.where(fin, (got - ref).abs(), torch.zeros_like(got))
+    bad = (fin_g != fin_r) | (diff > atol + rtol * mag)
+    rel = diff / mag.clamp(min=1e-30)
+    return int(bad.any(dim=1).sum()), float(rel.max()), float(diff.max())
 
 
 def nbytes(*tensors):
@@ -517,6 +535,326 @@ def fleet_phase(dev):
             "fused": fused}
 
 
+def largend_target(dev, nd):
+    from mcmc_spec_tpu_torch.bench_target import build_bench_target
+
+    return build_bench_target(torch.float32, device=dev, nd=nd, grid_step=8.0)
+
+
+def lane_operands(tgt, P):
+    """The segmented lane's arguments for walkers ``P``, as ``log_posterior_batch`` forms them."""
+    from mcmc_spec_tpu_torch.inference.batched import _forward_small
+
+    nT, nG, nd = tgt.D.shape
+    return (_forward_small(P, tgt)[4], P[:, tgt.nspec].contiguous(), tgt.D.reshape(nT * nG, nd),
+            tgt.ext_k_data, tgt.data_flux, tgt.data_err, tgt.V, tgt.Vpinv, tgt.med_data,
+            tgt.n_data_true)
+
+
+def dial_kwargs(dials):
+    return dict(iters=dials["median_iters"], mm_passes=dials["matmul_passes"],
+                recip=dials["recip_newton"])
+
+
+def check_lane(name, tgt, P, dials, max_outside, eager):
+    """K6-K9 and the composition against their plain versions on the same inputs (K7 bit
+    for bit); with ``eager`` the composition also against the sort composition.
+    Returns each kernel's max abs error."""
+    from mcmc_spec_tpu_torch.inference.batched import (
+        _spec_chi2_xla,
+        _spec_chi2_xla_median_only,
+    )
+    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
+
+    ops = lane_operands(tgt, P)
+    Wcomb, av, D, kd, data, err, V, Vpinv, med_data, n_true = ops
+    kw = dial_kwargs(dials)
+    iters, recip = kw["iters"], kw["recip"]
+    NW = P.shape[0]
+    res = {}
+    model = seg.model_extinct(Wcomb, av, D, kd)
+    torch.cuda.synchronize()
+    res["model_extinct"] = compare(model, seg.model_extinct_reference(Wcomb, av, D, kd))
+    med = seg.median_nonneg(model, n_true, iters)
+    torch.cuda.synchronize()
+    med_ref = seg.median_nonneg_reference(model, n_true, iters)
+    same = int((med.view(torch.int32) == med_ref.view(torch.int32)).sum())
+    # one rank per row, as ragged targets would give them
+    n_rows = (n_true - torch.arange(NW, device=P.device) % 3).to(torch.int32)
+    rows = seg.median_nonneg(model, n_rows, iters)
+    torch.cuda.synchronize()
+    same_rows = int((rows.view(torch.int32)
+                     == seg.median_nonneg_reference(model, n_rows, iters).view(torch.int32)).sum())
+    print(f"[K7 {name}] {NW} rows: {same} bit-identical to the plain version; {same_rows} "
+          "with per-row ranks")
+    require(same == NW and same_rows == NW,
+            f"K7 {name}: {NW - same} rows ({NW - same_rows} per-row) differ from the plain version")
+    res["median_nonneg"] = (0, 0.0, float((med - med_ref).abs().max()))
+    scale = med_data.to(torch.float32) / med
+    coeffs = seg.renorm_partials(model, scale, data, Vpinv, recip)
+    torch.cuda.synchronize()
+    res["renorm_partials"] = compare(
+        coeffs, seg.renorm_partials_reference(model, scale, data, Vpinv, recip))
+    for renorm in (True, False):
+        got = seg.resid_chi2(model, scale, coeffs, data, err, V, recip, renorm)
+        torch.cuda.synchronize()
+        ref = seg.resid_chi2_reference(model, scale, coeffs, data, err, V, recip, renorm)
+        res[f"resid_chi2 renorm={renorm}"] = compare(got, ref)
+    for renorm in (True, False):
+        got = seg.spectrum_chi2_segmented(*ops, renorm=renorm, **kw)
+        torch.cuda.synchronize()
+        ref = seg.spectrum_chi2_segmented_reference(*ops, renorm=renorm, **kw)
+        res[f"composition renorm={renorm}"] = compare(got, ref)
+        if eager:
+            sort = (_spec_chi2_xla if renorm else _spec_chi2_xla_median_only)(Wcomb, av, tgt)
+            res[f"composition vs eager sort renorm={renorm}"] = compare(got, sort)
+    for k, (outside, rel, err_abs) in res.items():
+        print(f"[{k} {name}] {NW} walkers: {outside} outside tolerance (allowed {max_outside}), "
+              f"max rel err {rel:.3e}, max abs err {err_abs:.3e}")
+        require(outside <= max_outside, f"{k} {name}: {outside} walkers outside tolerance")
+    errs = {k: res[k][2] for k in ("model_extinct", "median_nonneg", "renorm_partials")}
+    errs["resid_chi2"] = max(res["resid_chi2 renorm=True"][2], res["resid_chi2 renorm=False"][2])
+    return errs
+
+
+def check_lane_boundary(dev):
+    """At nd = LARGE_ND both lanes apply: the segmented composition against K3."""
+    from mcmc_spec_tpu_torch.bench_target import init_walker_batch
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
+
+    tgt, truth = largend_target(dev, seg.LARGE_ND)
+    P = torch.cat([init_walker_batch(tgt, truth, NW_LARGE, seed=3), edge_walkers(truth, tgt)])
+    ops = lane_operands(tgt, P)
+    for renorm in (True, False):
+        got = seg.spectrum_chi2_segmented(*ops, renorm=renorm, **dial_kwargs(EXACT))
+        ref = ck.spectrum_chi2(*ops[:9], renorm=renorm, **dial_kwargs(EXACT))
+        torch.cuda.synchronize()
+        outside, rel, err = compare(got, ref)
+        print(f"[lanes at nd={seg.LARGE_ND}, renorm={renorm}, exact dials] segmented vs K3, "
+              f"{P.shape[0]} walkers: {outside} outside tolerance, max rel err {rel:.3e}")
+        require(outside == 0, f"segmented vs K3 at nd={seg.LARGE_ND}: {outside} outside")
+
+
+def largend_fit(tgt, truth, dev):
+    """The two-stage fit at nd = ND_FIT through the user entry points: the main path
+    of the segmented lane.  Returns the launch counts and the stage-1 wall time."""
+    from mcmc_spec_tpu_torch.inference.anneal import init_walkers, run_anneal
+    from mcmc_spec_tpu_torch.inference.batched import log_posterior_batch
+    from mcmc_spec_tpu_torch.inference.stretch import init_ensemble, run_ensemble
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    logp = lambda b: log_posterior_batch(b, tgt)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    p0 = init_walkers(tgt, NW_LARGE, plx=float(truth[-1]), plx_err=0.05e-3, generator=gen)
+    params, chi, _ = run_anneal(tgt, p0, gen, steps=LARGE_ANNEAL_STEPS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    take = NW_LARGE // 3
+    state = init_ensemble(params[torch.argsort(chi)[:take]], logp, gen)
+    state, chain, _ = run_ensemble(state, logp, LARGE_SAMPLE_STEPS, thin=8)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(ck.LAUNCHES)
+    acc = float(state.n_accept) / (take * LARGE_SAMPLE_STEPS)
+    print(f"[largend fit nd={ND_FIT}] stage 1: {NW_LARGE} walkers x 50*{LARGE_ANNEAL_STEPS} "
+          f"iterations in {t1 - t0:.2f} s, best chi^2 {float(chi.min()):.2f}, median "
+          f"{float(chi.median()):.2f}")
+    print(f"[largend fit nd={ND_FIT}] stage 2: {take} walkers x {LARGE_SAMPLE_STEPS} steps in "
+          f"{t2 - t1:.2f} s, acceptance {acc:.3f}; launches {launches}")
+    require(torch.isfinite(chi).all(), "largend stage 1: non-finite chi^2")
+    require(torch.isfinite(state.log_prob).all(), "largend stage 2: non-finite log-probs")
+    require(0.0 < acc < 1.0, f"largend stage 2: acceptance {acc} outside (0, 1)")
+    for name in ("model_extinct", "median_nonneg", "renorm_partials", "resid_chi2"):
+        require(launches[name] > 0, f"{name} was not launched in the large-nd fit")
+    for name in ("log_posterior_fused", "spectrum_chi2"):
+        require(launches[name] == 0, f"{name} was launched in the large-nd fit")
+    med = chain[chain.shape[0] // 2:].reshape(-1, tgt.ndim).median(dim=0).values.cpu().numpy()
+    for k, (m, t) in enumerate(zip(med, truth)):
+        print(f"[largend fit] param {k}: posterior median {m:.6g}, truth {t:.6g}")
+    return launches, t1 - t0
+
+
+def kary_ops(NW, nd, iters, n_true):
+    """Compares and counts of the k-ary median on [NW, nd]: 3 thresholds per round, the
+    exact mode's single-bit count and, for an even n_true, the upper-middle pass."""
+    if iters >= 31:
+        per = 15 * 6 + 2 + (0 if n_true % 2 else 3)
+    else:
+        per = 6 * ((iters + 1) // 2)
+    return NW * nd * per
+
+
+def lane_kernel_times(tgt, P, dials, plain=False):
+    """CUDA-event ms of K6-K9 alone on walkers ``P`` (renorm on).  With ``plain``:
+    ({name: (kernel ms, plain ms)}, {name: library ms}, {name: bound})."""
+    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
+
+    Wcomb, av, D, kd, data, err, V, Vpinv, med_data, n_true = lane_operands(tgt, P)
+    kw = dial_kwargs(dials)
+    iters, recip = kw["iters"], kw["recip"]
+    model = seg.model_extinct(Wcomb, av, D, kd)
+    med = seg.median_nonneg(model, n_true, iters)
+    scale = med_data.to(torch.float32) / med
+    coeffs = seg.renorm_partials(model, scale, data, Vpinv, recip)
+    calls = {
+        "model_extinct": (lambda: seg.model_extinct(Wcomb, av, D, kd),
+                          lambda: seg.model_extinct_reference(Wcomb, av, D, kd)),
+        "median_nonneg": (lambda: seg.median_nonneg(model, n_true, iters),
+                          lambda: seg.median_nonneg_reference(model, n_true, iters)),
+        "renorm_partials": (lambda: seg.renorm_partials(model, scale, data, Vpinv, recip),
+                            lambda: seg.renorm_partials_reference(model, scale, data, Vpinv,
+                                                                  recip)),
+        "resid_chi2": (lambda: seg.resid_chi2(model, scale, coeffs, data, err, V, recip),
+                       lambda: seg.resid_chi2_reference(model, scale, coeffs, data, err, V,
+                                                        recip)),
+    }
+    times = {k: cuda_ms(kern) for k, (kern, _) in calls.items()}
+    if not plain:
+        return times
+    NW, nd = model.shape
+    r1 = (int(n_true) + 1) // 2
+    out = {k: (times[k], cuda_ms(ref, reps=5)) for k, (_, ref) in calls.items()}
+    library = {"median_nonneg": cuda_ms(lambda: torch.kthvalue(model, r1, dim=1))}
+    inv_err, VT = 1.0 / err, V.T.contiguous()
+    bounds = {
+        "model_extinct": bound(nbytes(Wcomb, av, D, kd, model),
+                               2 * int(torch.count_nonzero(Wcomb)) * nd
+                               + 3 * int((av > 0).sum()) * nd),
+        "median_nonneg": bound(nbytes(model, med) + 4, kary_ops(NW, nd, iters, int(n_true))),
+        # a multiply, a divide and three FMAs per point
+        "renorm_partials": bound(nbytes(model, scale, data, Vpinv, coeffs), 8 * NW * nd),
+        # the scale, the fit (a multiply and two FMAs), a divide, the residual, its square sum
+        "resid_chi2": bound(nbytes(model, scale, coeffs, data, inv_err, VT, med), 11 * NW * nd),
+    }
+    return out, library, bounds
+
+
+def largend_throughput(dev, targets):
+    """2,048 walkers (half-step 1,024) at the production and the exact dials, per nd."""
+    from mcmc_spec_tpu_torch.bench_target import init_walker_batch
+    from mcmc_spec_tpu_torch.inference.batched import log_posterior_batch
+    from mcmc_spec_tpu_torch.inference.stretch import init_ensemble, run_ensemble
+
+    rates = {}
+    for nd, (tgt, truth) in targets.items():
+        for label, dials in (("production", PROD), ("exact", EXACT)):
+            t = dataclasses.replace(tgt, **dials)
+            logp = lambda b: log_posterior_batch(b, t)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            P = init_walker_batch(t, truth, 2 * NW_LARGE)
+            state = init_ensemble(P, logp, gen)
+            state, _, _ = run_ensemble(state, logp, LARGE_WARMUP, thin=LARGE_WARMUP)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, chain, _ = run_ensemble(state, logp, LARGE_TIMED, thin=LARGE_TIMED)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            require(torch.isfinite(chain).all(), f"largend throughput {nd} {label}: non-finite")
+            step_ms = 1e3 * dt / LARGE_TIMED
+            half = P[:NW_LARGE].contiguous()
+            kern = lane_kernel_times(t, half, dials)
+            xla = dataclasses.replace(t, spectrum_backend="xla")
+            eager = cuda_ms(lambda: log_posterior_batch(half, xla), reps=5)
+            rates[(nd, label)] = {"rate": LARGE_TIMED * 2 * NW_LARGE / dt, "step_ms": step_ms,
+                                  "kernels": kern, "eager_ms": eager}
+            print(f"[largend throughput nd={nd} {label}] {2 * NW_LARGE} walkers x {LARGE_TIMED} "
+                  f"steps: {dt:.4f} s, {rates[(nd, label)]['rate']:.1f} evals/s; step "
+                  f"{step_ms:.4f} ms, 2 x the four kernels alone {2 * sum(kern.values()):.4f} ms "
+                  f"({', '.join(f'{k} {v:.4f}' for k, v in kern.items())}); eager sort "
+                  f"composition, one {NW_LARGE}-walker evaluation {eager:.4f} ms")
+            if nd == ND_FIT and label == "production":
+                busy, n_kernels, top = device_busy(lambda: run_ensemble(state, logp, 4, thin=4))
+                share = ("not measured (the profiler reported no device time)" if busy is None
+                         else f"{busy:.3f}, {n_kernels / 4:.0f} kernel launches per step")
+                print(f"[largend throughput nd={nd} {label}] device busy share under "
+                      f"torch.profiler (4 steps): {share}; top kernels (ms): "
+                      f"{[(k, round(v, 4)) for k, v in top]}")
+    return rates
+
+
+def largend_crossover(dev, targets):
+    """1,024 walkers per nd at the production dials: the fused posterior K1 and the
+    spectrum-chi^2 kernel K3 where their row fits shared memory, the segmented
+    composition and the eager sort composition (the spectrum term, renorm on), and
+    the log-posterior as the dispatch evaluates it."""
+    from mcmc_spec_tpu_torch.bench_target import init_walker_batch
+    from mcmc_spec_tpu_torch.inference.batched import _spec_chi2_xla, log_posterior_batch
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
+
+    rows = {}
+    for nd in CROSSOVER_ND:
+        tgt, truth = targets[nd] if nd in targets else largend_target(dev, nd)
+        t = dataclasses.replace(tgt, **PROD)
+        P = init_walker_batch(t, truth, NW_LARGE, seed=5)
+        ops = lane_operands(t, P)
+        NO = ops[0].shape[1]
+        fits = lambda weight_rows: 4 * (nd + weight_rows * NO) <= ck.ROW_SMEM_BYTES
+        row = {
+            "K1 posterior": cuda_ms(lambda: ck.log_posterior_fused(P, t)) if fits(3) else None,
+            "K3 spectrum": (cuda_ms(lambda: ck.spectrum_chi2(*ops[:9], **dial_kwargs(PROD)))
+                            if fits(1) else None),
+            "segmented spectrum": cuda_ms(
+                lambda: seg.spectrum_chi2_segmented(*ops, **dial_kwargs(PROD))),
+            "eager spectrum": cuda_ms(lambda: _spec_chi2_xla(ops[0], ops[1], t), reps=5),
+            "dispatched posterior": cuda_ms(lambda: log_posterior_batch(P, t)),
+        }
+        rows[nd] = row
+        print(f"[largend crossover nd={nd}] {NW_LARGE} walkers, production dials, ms: "
+              + ", ".join(f"{k} {'does not fit' if v is None else f'{v:.4f}'}"
+                          for k, v in row.items()))
+    return rows
+
+
+def largend_checks(dev):
+    """The kernel checks of the large-nd phase; returns the nd = ND_FIT target, its
+    truth, the checked walkers and the exact-dial max abs errors."""
+    from mcmc_spec_tpu_torch.bench_target import init_walker_batch
+
+    t0 = time.perf_counter()
+    tgt, truth = largend_target(dev, ND_FIT)
+    print(f"[largend] bench target nd={ND_FIT} packed in {time.perf_counter() - t0:.1f} s: D "
+          f"{tuple(tgt.D.shape)}, model of {NW_LARGE} walkers "
+          f"{4 * NW_LARGE * ND_FIT / 1e6:.1f} MB")
+    P = torch.cat([init_walker_batch(tgt, truth, NW_LARGE), edge_walkers(truth, tgt)])
+    errs = check_lane(f"nd={ND_FIT} exact dials (31, 6, 0)", tgt, P, EXACT, 0, eager=True)
+    check_lane(f"nd={ND_FIT} production dials (14, 3, 2)", tgt, P, PROD,
+               int(PROD_MAX_OUTSIDE_FRAC * NW_LARGE), eager=False)
+    odd, odd_truth = largend_target(dev, ND_ODD)
+    Podd = torch.cat([init_walker_batch(odd, odd_truth, NW_LARGE, seed=2),
+                      edge_walkers(odd_truth, odd)])
+    check_lane(f"nd={ND_ODD} exact dials", odd, Podd, EXACT, 0, eager=True)
+    check_lane(f"nd={ND_ODD} production dials", odd, Podd, PROD,
+               int(PROD_MAX_OUTSIDE_FRAC * NW_LARGE), eager=False)
+    check_lane_boundary(dev)
+    return tgt, truth, P, errs
+
+
+def largend_phase(dev):
+    tgt, truth, P, errs = largend_checks(dev)
+    t0 = time.perf_counter()
+    launches, stage1_s = largend_fit(tgt, truth, dev)
+    print(f"[largend] fit {time.perf_counter() - t0:.1f} s")
+    wide = largend_target(dev, ND_WIDE)
+    rates = largend_throughput(dev, {ND_FIT: (tgt, truth), ND_WIDE: wide})
+
+    # the kernel report: one half-step at nd = ND_FIT, production dials
+    times, library, bounds = lane_kernel_times(dataclasses.replace(tgt, **PROD),
+                                               P[:NW_LARGE].contiguous(), PROD, plain=True)
+    for k, (ms, plain_ms) in times.items():
+        lib = library.get(k)
+        print(f"[time {k} production] {NW_LARGE} walkers x nd={ND_FIT}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bounds[k][0]:.5f} ms ({bounds[k][1]})"
+              + (f", library (torch.kthvalue) {lib:.4f} ms" if lib is not None else ""))
+    cross = largend_crossover(dev, {ND_FIT: (tgt, truth)})
+    return {"errs": errs, "launches": launches, "stage1_s": stage1_s, "rates": rates,
+            "times": times, "library": library, "bounds": bounds, "crossover": cross}
+
+
 def main() -> int:
     dev, smi = device_phase()
     build_phase()
@@ -525,10 +863,16 @@ def main() -> int:
     k1_ms = {label: kres["times"][("k1", label)][0] for label in ("production", "exact")}
     rates = throughput_phase(tgt, truth, dev, k1_ms)
     fres = fleet_phase(dev)
+    t0 = time.perf_counter()
+    lres = largend_phase(dev)
+    largend_s = time.perf_counter() - t0
+    lr = lres["rates"]
     print(f"[summary] {smi}: stage-2 {rates['production']:.1f} evals/s (production dials), "
           f"{rates['exact']:.1f} evals/s (exact dials); stage-1 wall {stage1_s:.2f} s; fleet "
           f"{NTGT} x {NW_FLEET}: composed (K4) {fres['composed']['rate']:.1f} evals/s, "
-          f"fused (K5) {fres['fused']['rate']:.1f} evals/s")
+          f"fused (K5) {fres['fused']['rate']:.1f} evals/s; large nd phase {largend_s:.1f} s: "
+          + ", ".join(f"nd={nd} {label} {lr[(nd, label)]['rate']:.1f} evals/s"
+                      for nd, label in lr))
     k1_ms_prod, k1_plain_prod = kres["times"][("k1", "production")]
     k3_ms, k3_plain = kres["times"][("k3", NWALK_BENCH // 2)]
     rows = [
@@ -541,12 +885,22 @@ def main() -> int:
         ("log_posterior_fleet_fused", "log_posterior_fleet_fused.cu", 1057,
          fres["fused"]["launches"], fres["errs"][1], *fres["times"]["k5"], fres["bounds"]["k5"]),
     ]
+    rows = [(name, src, f"pallas_kernels.py:{line}", n, err, ms, plain_ms, b, None)
+            for name, src, line, n, err, ms, plain_ms, b in rows]
+    # the segmented lane, mcmc_spec_tpu/ops/spec_segmented.py
+    for name, src, line in (("model_extinct", "model_extinct.cu", 94),
+                            ("median_nonneg", "median_kary.cu", 215),
+                            ("renorm_partials", "segmented_stats.cu", 339),
+                            ("resid_chi2", "segmented_stats.cu", 377)):
+        rows.append((name, src, f"spec_segmented.py:{line}", lres["launches"][name],
+                     lres["errs"][name], *lres["times"][name], lres["bounds"][name],
+                     lres["library"].get(name)))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"mcmc_spec_tpu_torch/csrc/{src}",
-         "replaces": f"mcmc_spec_tpu/ops/pallas_kernels.py:{line}", "launches": n,
+         "replaces": f"mcmc_spec_tpu/ops/{where}", "launches": n,
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
-         "library_ms": None}
-        for name, src, line, n, err, ms, plain_ms, b in rows]}))
+         "library_ms": lib}
+        for name, src, where, n, err, ms, plain_ms, b, lib in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -10,7 +10,9 @@ Dispatch, decided by device, dtype and target shape only:
 
 * a CUDA float32 target eligible for fusion (``_fusable``) evaluates the
   whole log-posterior in the fused kernel (``ops.cuda_kernels``, K1);
-* otherwise a CUDA float32 spectrum term runs the spectrum-chi^2 kernel (K3);
+* otherwise a CUDA float32 spectrum term runs the spectrum-chi^2 kernel (K3)
+  up to ``LARGE_ND`` data points, and the segmented large-nd lane
+  (``ops.spec_segmented``, K6-K9) above;
 * everything else runs the torch composition.
 
 Walkers of another dtype than the target are evaluated, as in JAX, in
@@ -26,12 +28,9 @@ import torch
 
 from mcmc_spec_tpu_torch.inference.target import PC_CM, RSUN_CM, PackedTarget, common_dtype
 from mcmc_spec_tpu_torch.models.mist import LSUN, RSUN, SIGMA_SB
-from mcmc_spec_tpu_torch.ops import cuda_kernels
+from mcmc_spec_tpu_torch.ops import cuda_kernels, spec_segmented
 from mcmc_spec_tpu_torch.ops.interp import tent_weights
-
-# widest data axis the one-block-per-walker kernels take; wider targets need
-# the segmented lane (mcmc_spec_tpu.ops.spec_segmented), not yet ported
-LARGE_ND = 4096
+from mcmc_spec_tpu_torch.ops.spec_segmented import LARGE_ND
 
 
 def _on_cuda_f32(p: torch.Tensor) -> bool:
@@ -160,17 +159,17 @@ def _chi2_terms_batch(p, tgt: PackedTarget, spec_mult, chi_spec=None, renorm=Tru
         chi_spec = torch.zeros(p.shape[0], dtype=p.dtype, device=p.device)
     elif tgt.spectrum_backend != "xla" and _on_cuda_f32(p):
         nT, nG, nd = tgt.D.shape
-        if nd > LARGE_ND:
-            raise NotImplementedError(
-                f"nd={nd} > {LARGE_ND} on CUDA needs the segmented large-nd lane "
-                "(mcmc_spec_tpu.ops.spec_segmented.spectrum_chi2_segmented), "
-                "which is not ported yet")
         it, mm, rn = cuda_kernels.resolve_dials(tgt)
-        chi_spec = cuda_kernels.spectrum_chi2(
-            Wcomb, av, tgt.D.reshape(nT * nG, nd), tgt.ext_k_data,
-            tgt.data_flux, tgt.data_err, tgt.V, tgt.Vpinv, tgt.med_data,
-            iters=it, mm_passes=mm, recip=rn, renorm=renorm,
-        )
+        args = (Wcomb, av, tgt.D.reshape(nT * nG, nd), tgt.ext_k_data, tgt.data_flux,
+                tgt.data_err, tgt.V, tgt.Vpinv, tgt.med_data)
+        if nd > LARGE_ND:
+            # native-resolution regime: a row no longer fits a block's shared
+            # memory; the segmented lane streams the model through device memory
+            chi_spec = spec_segmented.spectrum_chi2_segmented(
+                *args, tgt.n_data_true, iters=it, mm_passes=mm, recip=rn, renorm=renorm)
+        else:
+            chi_spec = cuda_kernels.spectrum_chi2(
+                *args, iters=it, mm_passes=mm, recip=rn, renorm=renorm)
     elif renorm:
         chi_spec = _spec_chi2_xla(Wcomb, av, tgt)
     else:

@@ -15,6 +15,11 @@ all targets in one launch:
   batched posterior per target;
 * otherwise the per-target composition.
 
+The fleet kernels hold a target's model row in a block's shared memory, so on
+the card a fleet whose rows do not fit raises before any launch
+(``_require_row_fits``); single-target fits of such targets take the
+segmented large-nd lane.
+
 ``run_fleet_ensemble`` stretch-moves every target's ensemble at once; its
 stretch, partner and acceptance draws are made per emitted chunk from the
 state's ``torch.Generator``, so ``run(40) == run(20) + run(20)`` at a fixed
@@ -42,6 +47,7 @@ from mcmc_spec_tpu_torch.inference.target import (
     target_views,
 )
 from mcmc_spec_tpu_torch.ops import cuda_kernels
+from mcmc_spec_tpu_torch.ops.spec_segmented import LARGE_ND
 from mcmc_spec_tpu_torch.utils import flags
 
 
@@ -70,13 +76,32 @@ def stack_targets(targets: Sequence[PackedTarget]) -> PackedTarget:
         **{name: torch.stack([getattr(t, name) for t in targets]) for name in DATA_FIELDS})
 
 
+def _require_row_fits(fleet: PackedTarget, fused: bool) -> None:
+    """Raise unless a fleet kernel's row fits a block's shared memory: nd floats
+    and the blend weights, one row of NO for K4, 1 + nspec rows for K5."""
+    nT, nG, nd = fleet.D.shape[-3:]
+    weights = (1 + (fleet.nspec if fused else 0)) * nT * nG
+    max_nd = cuda_kernels.ROW_SMEM_BYTES // 4 - weights
+    if nd > max_nd:
+        kernel = "log_posterior_fleet_fused (K5)" if fused else "spectrum_chi2_fleet (K4)"
+        raise ValueError(
+            f"fleet nd={nd} is too wide for {kernel}: its row holds at most nd={max_nd} "
+            f"points in {cuda_kernels.ROW_SMEM_BYTES} bytes of shared memory per block; "
+            f"fit these targets one at a time instead, where nd > {LARGE_ND} takes the "
+            "segmented large-nd lane")
+
+
 def log_posterior_fleet(params, fleet: PackedTarget):
     """[ntgt, nw, ndim] -> [ntgt, nw] log posteriors (dispatch in the module docstring)."""
     params, fleet = common_dtype(params, fleet)
+    on_card = batched._on_cuda_f32(params)
     if flags.fused_eval_forced() and fleet.n_contrast > 0 and fleet.n_phot > 0:
+        if on_card:
+            _require_row_fits(fleet, fused=True)
         return cuda_kernels.log_posterior_fleet_fused(params, fleet)
     views = target_views(fleet)
-    if fleet.spectrum_weight != 0.0 and batched._on_cuda_f32(params):
+    if fleet.spectrum_weight != 0.0 and on_card:
+        _require_row_fits(fleet, fused=False)
         Wcomb = torch.stack([batched._forward_small(p, t)[4] for p, t in zip(params, views)])
         chi_spec = cuda_kernels.spectrum_chi2_fleet(Wcomb, params[..., fleet.nspec], fleet)
         return torch.stack([batched.log_posterior_batch(p, t, chi_spec=cs)

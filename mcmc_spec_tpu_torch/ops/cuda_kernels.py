@@ -25,7 +25,9 @@ Beside each kernel is its plain PyTorch version (``*_reference``): f32, the
 same pack-time dials, the arithmetic of the Pallas kernel, on the same
 operand tables.  A wrapper runs the plain version only when it is given CPU
 tensors; given CUDA tensors it launches the kernel or raises.  ``LAUNCHES``
-counts each wrapper's kernel launches.
+counts each wrapper's kernel launches.  The segmented large-nd lane
+(``ops.spec_segmented``, K6-K9) shares this library, its checks and its
+counts.
 """
 from __future__ import annotations
 
@@ -50,7 +52,12 @@ _F32 = torch.float32
 
 # kernel launches per wrapper, for showing that a run went through the kernels
 LAUNCHES = {"log_posterior_fused": 0, "spectrum_chi2": 0, "spectrum_chi2_fleet": 0,
-            "log_posterior_fleet_fused": 0}
+            "log_posterior_fleet_fused": 0, "model_extinct": 0, "median_nonneg": 0,
+            "renorm_partials": 0, "resid_chi2": 0}
+# the dynamic shared memory a Hopper block may opt into (227 KB), less a margin
+# for the kernels' static shared memory: the one-block-per-walker kernels hold
+# a model row of nd floats and their blend weights in it
+ROW_SMEM_BYTES = 232448 - 1024
 
 
 def reset_launches() -> None:
@@ -232,6 +239,11 @@ _SIGNATURES = {
     "spectrum_chi2_launch": [_P] * 10 + [_I] * 6 + [_P],
     "spectrum_chi2_fleet_launch": [_P] * 11 + [_I] * 6 + [_P],
     "log_posterior_fleet_fused_launch": [_P] * 21 + [_I] * 15 + [_F] * 2 + [_P],
+    # the segmented large-nd lane (ops.spec_segmented)
+    "model_extinct_launch": [_P] * 5 + [_I] * 3 + [_P],
+    "median_kary_launch": [_P] * 3 + [_I] * 4 + [_P],
+    "renorm_partials_launch": [_P] * 5 + [_I] * 3 + [_P],
+    "resid_chi2_launch": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 

@@ -21,8 +21,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("log_posterior_fused.cu", "spectrum_chi2.cu", "spectrum_chi2_fleet.cu",
-           "log_posterior_fleet_fused.cu")
-HEADERS = ("spectrum_block.cuh", "posterior_body.cuh")
+           "log_posterior_fleet_fused.cu", "model_extinct.cu", "median_kary.cu",
+           "segmented_stats.cu")
+HEADERS = ("block_common.cuh", "spectrum_block.cuh", "posterior_body.cuh")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 # no --use_fast_math: the tolerances assume libm expf/logf and true division.
 # -Xptxas -v writes each kernel's registers and shared memory to the build log.

@@ -231,7 +231,7 @@ def test_cpu_tensors_take_the_composition(monkeypatch, f32_target):
 def test_cuda_f32_dispatch(monkeypatch, f32_target):
     """On (simulated) CUDA f32 walkers: fusable -> K1; otherwise the spectrum
     term -> K3, renorm on for the posterior and off, with the exact median,
-    for the annealer; nd above the one-block limit raises."""
+    for the annealer; nd above the one-block limit takes the segmented lane."""
     monkeypatch.setattr(batched, "_on_cuda_f32", lambda p: p.dtype == torch.float32)
     k1 = _Recorder(lambda p, tgt: torch.zeros(p.shape[0]))
     k3 = _Recorder(lambda Wcomb, *rest: torch.zeros(Wcomb.shape[0]))
@@ -263,11 +263,18 @@ def test_cuda_f32_dispatch(monkeypatch, f32_target):
     batched.optimizer_chi2_batch(P.double(), f64)
     assert len(k1.calls) == 1 and len(k3.calls) == 2
 
+    from mcmc_spec_tpu_torch.ops import spec_segmented
+
+    seg = _Recorder(lambda Wcomb, *rest: torch.zeros(Wcomb.shape[0]))
+    monkeypatch.setattr(spec_segmented, "spectrum_chi2_segmented", seg)
     nT, nG, _ = prod.D.shape
     wide = dataclasses.replace(prod, D=torch.zeros(nT, nG, batched.LARGE_ND + 1))
     assert not batched._fusable(wide)
-    with pytest.raises(NotImplementedError, match="spec_segmented"):
-        batched.log_posterior_batch(P, wide)
+    batched.log_posterior_batch(P, wide)
+    batched.optimizer_chi2_batch(P, wide)
+    assert len(seg.calls) == 2 and len(k1.calls) == 1 and len(k3.calls) == 2
+    assert seg.calls[0][1]["renorm"] is True and seg.calls[0][1]["iters"] == 14
+    assert seg.calls[1][1]["renorm"] is False and seg.calls[1][1]["iters"] == 31
 
 
 def test_wrappers_refuse_other_devices(f32_target):
