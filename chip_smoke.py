@@ -30,7 +30,15 @@ Phases, each of which exits non-zero on failure:
    K3 at nd = 4,096 where the dispatch switches lanes, the two-stage fit at
    nd = 65,536 through ``log_posterior_batch`` and ``optimizer_chi2_batch``,
    the throughput of 2,048 walkers (16 warm-up + 128 timed steps), and a
-   crossover of the lanes at 1,024 walkers from nd = 4,096 to 65,536.
+   crossover of the lanes at 1,024 walkers from nd = 4,096 to 65,536;
+8. experiments: the cost-attribution kernels of ``mcmc_spec_tpu_torch.scripts``
+   against their plain versions on the card (S10 multiply chains and S11 row
+   median bit for bit, S11 also against ``torch.kthvalue``; S4 spectrum with
+   the reciprocal dial at every dial, and bit for bit against K3 at recip 0;
+   S12 fused-posterior sections, every variant on 16,384 + 5 walkers at both
+   dial sets, and ``full`` bit for bit against K1), then the three
+   experiments' ``main()`` at full size (32,768 walkers, nd = 1792) with
+   launch counts.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its bytes (each input read once, the
@@ -38,7 +46,10 @@ output written once) over 3.35 TB/s and its operations over the 67 TFLOP/s
 float32 peak outside the tensor cores (H100 SXM data sheet).  Operations are
 counted from this run's inputs: an add, multiply, compare, divide or exp is
 one, an FMA two; the model row counts only the non-zero blend weights; a
-median count pass is a compare and an add per point and threshold.
+median count pass is a compare and an add per point and threshold.  The
+multiply chains of S10 count one operation per multiply and per add, so their
+bound holds them against 67 TFLOP/s, twice the rate of one multiply per FP32
+lane per clock (S10 measures the latter).
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -71,6 +82,7 @@ NW_LARGE = 1024  # the JAX largend cell's evaluation batch
 LARGE_ANNEAL_STEPS, LARGE_SAMPLE_STEPS = 8, 64
 LARGE_WARMUP, LARGE_TIMED = 16, 128
 CROSSOVER_ND = (4096, 8192, 16384, 32768, 65536)
+ND_EXP_ODD = 1791  # S11's odd row
 
 
 class PhaseError(RuntimeError):
@@ -850,9 +862,176 @@ def largend_phase(dev):
         print(f"[time {k} production] {NW_LARGE} walkers x nd={ND_FIT}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bounds[k][0]:.5f} ms ({bounds[k][1]})"
               + (f", library (torch.kthvalue) {lib:.4f} ms" if lib is not None else ""))
+    # K10, the composition of K6-K9, on the same half-step
+    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
+
+    ops = lane_operands(dataclasses.replace(tgt, **PROD), P[:NW_LARGE].contiguous())
+    k10 = (cuda_ms(lambda: seg.spectrum_chi2_segmented(*ops, **dial_kwargs(PROD))),
+           cuda_ms(lambda: seg.spectrum_chi2_segmented_reference(*ops, **dial_kwargs(PROD)),
+                   reps=5))
+    print(f"[time spectrum_chi2_segmented (K10) production] {NW_LARGE} walkers x nd={ND_FIT}: "
+          f"composition {k10[0]:.4f} ms, plain {k10[1]:.4f} ms, bound (the sum of K6-K9's) "
+          f"{sum(b[0] for b in bounds.values()):.5f} ms")
     cross = largend_crossover(dev, {ND_FIT: (tgt, truth)})
     return {"errs": errs, "launches": launches, "stage1_s": stage1_s, "rates": rates,
-            "times": times, "library": library, "bounds": bounds, "crossover": cross}
+            "times": times, "library": library, "bounds": bounds, "crossover": cross, "k10": k10}
+
+
+def experiments_checks(dev, tgt, truth):
+    """S10, S11, S4 and S12 against their plain versions (and S11 against
+    ``torch.kthvalue``, S4 against K3, S12's ``full`` against K1) on the card.
+    Returns the max abs errors and the report's times and bounds."""
+    from mcmc_spec_tpu_torch.bench_target import init_walker_batch
+    from mcmc_spec_tpu_torch.inference.batched import _forward_small
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.scripts import ablate_fused_sections as ab
+    from mcmc_spec_tpu_torch.scripts import try_fast_recip as fr
+    from mcmc_spec_tpu_torch.scripts import vpu_microbench as vb
+
+    nd = tgt.D.shape[2]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    same_bits = lambda a, b: int((a.view(torch.int32) == b.view(torch.int32)).all(dim=-1).sum())
+    errs, times, bounds, library = {}, {}, {}, {}
+
+    # S10: every element, bit for bit
+    x = torch.rand((NWALK_BENCH, nd), generator=gen, device=dev) * 3.75 + 0.25
+    for k in vb.CHAIN_K:
+        got = vb.fma_chains(x, k)
+        torch.cuda.synchronize()
+        same = same_bits(got, vb.fma_chains_reference(x, k))
+        print(f"[S10 fma_chains k={k}, lanes={vb.CHAIN_LANES}] {NWALK_BENCH} x {nd}: {same} rows "
+              "bit-identical to the plain version")
+        require(same == NWALK_BENCH, f"S10 k={k}: {NWALK_BENCH - same} rows differ")
+    errs["fma_chains"] = 0.0
+    k = vb.CHAIN_K[0]
+    times["fma_chains"] = (cuda_ms(lambda: vb.fma_chains(x, k)),
+                           cuda_ms(lambda: vb.fma_chains_reference(x, k), reps=5))
+    bounds["fma_chains"] = bound(2 * nbytes(x), x.numel() * (k * vb.CHAIN_LANES
+                                                             + vb.CHAIN_LANES - 1))
+
+    # S11: every row, bit for bit; at 31 passes also the library's order statistics
+    for n in (nd, ND_EXP_ODD):
+        xm = torch.randn((NWALK_BENCH, n), generator=gen, device=dev).abs()
+        xm[:, : n // 3] = xm[:, :1]  # ties
+        r1 = (n + 1) // 2
+        lib = torch.kthvalue(xm, r1, dim=1, keepdim=True).values
+        if n % 2 == 0:
+            lib = 0.5 * (lib + torch.kthvalue(xm, r1 + 1, dim=1, keepdim=True).values)
+        for iters in (31, 15):
+            got = vb.median_only(xm, iters)
+            torch.cuda.synchronize()
+            same = same_bits(got, vb.median_only_reference(xm, iters))
+            same_lib = same_bits(got, lib) if iters == 31 else NWALK_BENCH
+            print(f"[S11 median_only nd={n}, iters={iters}] {NWALK_BENCH} rows: {same} "
+                  "bit-identical to the plain version"
+                  + (f", {same_lib} to torch.kthvalue" if iters == 31 else ""))
+            require(same == NWALK_BENCH and same_lib == NWALK_BENCH,
+                    f"S11 nd={n} iters={iters}: {NWALK_BENCH - same} rows differ from the plain "
+                    f"version, {NWALK_BENCH - same_lib} from torch.kthvalue")
+        if n == nd:
+            times["median_only"] = (cuda_ms(lambda: vb.median_only(xm, 31)),
+                                    cuda_ms(lambda: vb.median_only_reference(xm, 31), reps=5))
+            library["median_only"] = cuda_ms(lambda: torch.kthvalue(xm, r1, dim=1))
+            bounds["median_only"] = bound(nbytes(xm) + 4 * NWALK_BENCH,
+                                          2 * xm.numel() * 32)  # 31 passes + the refinement
+    errs["median_only"] = 0.0
+
+    # S4: every dial against the plain version; recip 0 against K3 on the same inputs
+    args = fr.synthetic_inputs(dev)
+    medd, Wc, av, D, kd, data, ie, Vp, VT = args
+    errs["spectrum_recip"] = 0.0
+    for recip in (0, 1, 2):
+        for noexp in (False, True):
+            got = fr.spectrum_recip(*args, recip=recip, noexp=noexp)
+            torch.cuda.synchronize()
+            ref = fr.spectrum_recip_reference(*args, recip=recip, noexp=noexp)
+            outside, rel, err = compare(got, ref)
+            errs["spectrum_recip"] = max(errs["spectrum_recip"], err)
+            print(f"[S4 spectrum_recip recip={recip} noexp={noexp}] {Wc.shape[0]} walkers: "
+                  f"{outside} outside tolerance, max rel err {rel:.3e}, max abs err {err:.3e}")
+            require(outside == 0, f"S4 recip={recip} noexp={noexp}: {outside} outside tolerance")
+    err_k3 = 1.0 / ie[0]  # K3 takes errors; 1/err is then the same inverse error on both
+    ie3 = (1.0 / err_k3)[None, :]
+    k3 = ck.spectrum_chi2(Wc, av[:, 0].contiguous(), D, kd[0], data[0], err_k3, VT.T, Vp,
+                          medd[0, 0], iters=fr.ITERS, mm_passes=3, recip=0, renorm=True)
+    s4 = fr.spectrum_recip(medd, Wc, av, D, kd, data, ie3, Vp, VT, recip=0)
+    torch.cuda.synchronize()
+    same = same_bits(s4, k3[:, None])
+    print(f"[S4 recip=0 vs K3, iters={fr.ITERS}, renorm on] {Wc.shape[0]} walkers: {same} "
+          "bit-identical")
+    require(same == Wc.shape[0], f"S4 vs K3: {Wc.shape[0] - same} walkers differ")
+    times["spectrum_recip"] = (cuda_ms(lambda: fr.spectrum_recip(*args, recip=0)),
+                               cuda_ms(lambda: fr.spectrum_recip_reference(*args, recip=0),
+                                       reps=5))
+    bounds["spectrum_recip"] = bound(nbytes(*args) + 4 * Wc.shape[0],
+                                     spectrum_ops(Wc, av, D.shape[1], fr.ITERS))
+
+    # S12: every variant on 16,384 + 5 walkers at both dial sets; full = K1 bit for bit
+    nhalf = NWALK_BENCH // 2
+    P = torch.cat([init_walker_batch(tgt, truth, nhalf, seed=4), edge_walkers(truth, tgt)])
+    errs["posterior_sections"] = 0.0
+    for label, dials, allowed in (("exact dials (31, 6, 0)", EXACT, 0),
+                                  ("production dials (14, 3, 2)", PROD,
+                                   int(PROD_MAX_OUTSIDE_FRAC * nhalf))):
+        t = dataclasses.replace(tgt, **dials)
+        for variant in ab.VARIANTS:
+            got = ab.posterior_sections(P, t, variant)
+            torch.cuda.synchronize()
+            outside, rel, err = compare(got, ab.posterior_sections_reference(P, t, variant))
+            if dials is EXACT:
+                errs["posterior_sections"] = max(errs["posterior_sections"], err)
+            line = (f"[S12 {variant} {label}] {P.shape[0]} walkers: {outside} outside tolerance "
+                    f"(allowed {allowed}), max rel err {rel:.3e}, max abs err {err:.3e}")
+            if variant == "full":
+                same = same_bits(got[:, None], ck.log_posterior_fused(P, t)[:, None])
+                line += f"; {same} bit-identical to K1"
+                require(same == P.shape[0], f"S12 full {label}: {P.shape[0] - same} walkers "
+                        "differ from K1")
+            print(line)
+            require(outside <= allowed, f"S12 {variant} {label}: {outside} outside tolerance")
+    prod = dataclasses.replace(tgt, **PROD)
+    coords = init_walker_batch(prod, truth, NWALK_BENCH)
+    times["posterior_sections"] = (
+        cuda_ms(lambda: ab.posterior_sections(coords, prod, "full")),
+        cuda_ms(lambda: ab.posterior_sections_reference(coords, prod, "full"), reps=5))
+    Wcomb = _forward_small(coords, prod)[4]
+    bounds["posterior_sections"] = bound(
+        nbytes(coords, *ck.kernel_tables(prod).values()) + 4 * NWALK_BENCH,
+        spectrum_ops(Wcomb, coords[:, prod.nspec], nd, PROD["median_iters"])
+        + posterior_scalar_ops(NWALK_BENCH, prod))
+    for name, (ms, plain_ms) in times.items():
+        print(f"[time {name}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bounds[name][0]:.5f} ms ({bounds[name][1]})"
+              + (f", library (torch.kthvalue) {library[name]:.4f} ms" if name in library else ""))
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
+
+
+def experiments_phase(dev, tgt, truth):
+    """The kernel checks, then the three experiments' ``main()`` at full size: the
+    experiments' main path, with its launch counts."""
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.scripts import ablate_fused_sections as ab
+    from mcmc_spec_tpu_torch.scripts import try_fast_recip as fr
+    from mcmc_spec_tpu_torch.scripts import vpu_microbench as vb
+
+    res = experiments_checks(dev, tgt, truth)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    mains = {}
+    for name, main in (("vpu_microbench", vb.main), ("try_fast_recip", fr.main),
+                       ("ablate_fused_sections", ab.main)):
+        t1 = time.perf_counter()
+        print(f"[experiments] python -m mcmc_spec_tpu_torch.scripts.{name}", flush=True)
+        mains[name] = main(device=dev)
+        print(f"[experiments] {name}: {time.perf_counter() - t1:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    print(f"[experiments] the three experiments in {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}")
+    for name in ("fma_chains", "median_only", "spectrum_recip", "posterior_sections"):
+        require(launches[name] > 0, f"{name} was not launched by the experiments")
+    return {**res, "launches": launches, "mains": mains}
 
 
 def main() -> int:
@@ -866,13 +1045,17 @@ def main() -> int:
     t0 = time.perf_counter()
     lres = largend_phase(dev)
     largend_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eres = experiments_phase(dev, tgt, truth)
+    experiments_s = time.perf_counter() - t0
     lr = lres["rates"]
     print(f"[summary] {smi}: stage-2 {rates['production']:.1f} evals/s (production dials), "
           f"{rates['exact']:.1f} evals/s (exact dials); stage-1 wall {stage1_s:.2f} s; fleet "
           f"{NTGT} x {NW_FLEET}: composed (K4) {fres['composed']['rate']:.1f} evals/s, "
           f"fused (K5) {fres['fused']['rate']:.1f} evals/s; large nd phase {largend_s:.1f} s: "
           + ", ".join(f"nd={nd} {label} {lr[(nd, label)]['rate']:.1f} evals/s"
-                      for nd, label in lr))
+                      for nd, label in lr)
+          + f"; experiments phase {experiments_s:.1f} s")
     k1_ms_prod, k1_plain_prod = kres["times"][("k1", "production")]
     k3_ms, k3_plain = kres["times"][("k3", NWALK_BENCH // 2)]
     rows = [
@@ -885,19 +1068,29 @@ def main() -> int:
         ("log_posterior_fleet_fused", "log_posterior_fleet_fused.cu", 1057,
          fres["fused"]["launches"], fres["errs"][1], *fres["times"]["k5"], fres["bounds"]["k5"]),
     ]
-    rows = [(name, src, f"pallas_kernels.py:{line}", n, err, ms, plain_ms, b, None)
+    rows = [(name, src, f"mcmc_spec_tpu/ops/pallas_kernels.py:{line}", n, err, ms, plain_ms, b,
+             None)
             for name, src, line, n, err, ms, plain_ms, b in rows]
     # the segmented lane, mcmc_spec_tpu/ops/spec_segmented.py
     for name, src, line in (("model_extinct", "model_extinct.cu", 94),
                             ("median_nonneg", "median_kary.cu", 215),
                             ("renorm_partials", "segmented_stats.cu", 339),
                             ("resid_chi2", "segmented_stats.cu", 377)):
-        rows.append((name, src, f"spec_segmented.py:{line}", lres["launches"][name],
+        rows.append((name, src, f"mcmc_spec_tpu/ops/spec_segmented.py:{line}",
+                     lres["launches"][name],
                      lres["errs"][name], *lres["times"][name], lres["bounds"][name],
                      lres["library"].get(name)))
+    # the cost-attribution experiments, scripts/
+    for name, src, where in (("fma_chains", "microbench.cu", "vpu_microbench.py:74"),
+                             ("median_only", "microbench.cu", "vpu_microbench.py:97"),
+                             ("spectrum_recip", "spectrum_recip.cu", "try_fast_recip.py:105"),
+                             ("posterior_sections", "posterior_sections.cu",
+                              "ablate_fused_sections.py:42")):
+        rows.append((name, src, f"scripts/{where}", eres["launches"][name], eres["errs"][name],
+                     *eres["times"][name], eres["bounds"][name], eres["library"].get(name)))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"mcmc_spec_tpu_torch/csrc/{src}",
-         "replaces": f"mcmc_spec_tpu/ops/{where}", "launches": n,
+         "replaces": where, "launches": n,
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
          "library_ms": lib}
         for name, src, where, n, err, ms, plain_ms, b, lib in rows]}))

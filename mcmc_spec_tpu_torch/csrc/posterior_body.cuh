@@ -100,6 +100,15 @@ __device__ __forceinline__ float warp_tent_dot(const float* tc, const float* val
 // The log-posterior of the walker pw[ndim] against target tables `t`.
 // Block-wide: every thread calls it and gets the value.  dyn: the dynamic
 // shared memory, nd + (1 + nspec) * NO floats.
+//
+// The section flags serve the cost ablation S12 (posterior_sections.cu,
+// scripts/ablate_fused_sections.py:variant_kernel) and are all
+// on for K1 and K5.  A section switched off yields the JAX variant's stub:
+// kPhot off -> chi_c = chi_p = 0; kPriors off -> lp = 0 (no priors, no
+// bounds); kSpectrum off -> chi_spec = sum(Wcomb); kW off -> Wk = teff * 1e-4
+// for every grid point (all NO weights non-zero, so the row build reads every
+// D row).
+template <bool kPhot = true, bool kPriors = true, bool kSpectrum = true, bool kW = true>
 __device__ inline float posterior_eval(const PosteriorConfig& a, const PosteriorTables& t,
                                        const TargetScalars& ts, const float* pw, float* dyn) {
   float* row = dyn;        // [nd] model row
@@ -139,10 +148,17 @@ __device__ inline float posterior_eval(const PosteriorConfig& a, const Posterior
 
     // --- MIST logg(T), grid tent weights, Wcomb
     for (int s = 0; s < n; ++s) {
-      const float logg = warp_tent_dot(t.mist_tent, t.mist_vals, a.nm, teff[s]);
-      lum[s] = a.rad_prior ? warp_tent_dot(t.mist_tent, t.mist_vals + a.nm, a.nm, teff[s]) : 0.0f;
+      float logg = 0.0f;
+      if constexpr (kW) {
+        logg = warp_tent_dot(t.mist_tent, t.mist_vals, a.nm, teff[s]);
+        lum[s] = a.rad_prior ? warp_tent_dot(t.mist_tent, t.mist_vals + a.nm, a.nm, teff[s]) : 0.0f;
+      } else {
+        lum[s] = 0.0f;
+      }
       for (int o = lane; o < a.NO; o += 32) {
-        const float wk = tent_w(t.tentT, o, a.NO, teff[s]) * tent_w(t.tentG, o, a.NO, logg);
+        float wk;
+        if constexpr (kW) wk = tent_w(t.tentT, o, a.NO, teff[s]) * tent_w(t.tentG, o, a.NO, logg);
+        else wk = teff[s] * (float)1e-4;
         const float sw = scale[s] * wk;
         swk[s * a.NO + o] = sw;
         wc[o] = s == 0 ? sw : wc[o] + sw;
@@ -151,75 +167,81 @@ __device__ inline float posterior_eval(const PosteriorConfig& a, const Posterior
     __syncwarp();
 
     // --- contrast magnitudes, one lane per band
-    if (lane < a.nc) {
-      for (int s = 0; s < n; ++s) {
-        float f = 0.0f;
-        for (int o = 0; o < a.NO; ++o) f += swk[s * a.NO + o] * t.Fc[o * a.nc + lane];
-        s_cmag[s][lane] = kMagPerLn * logf(max_nan(f, 1.17549435e-38f));
+    float chi_c = 0.0f, chi_p = 0.0f;
+    if constexpr (kPhot) {
+      if (lane < a.nc) {
+        for (int s = 0; s < n; ++s) {
+          float f = 0.0f;
+          for (int o = 0; o < a.NO; ++o) f += swk[s * a.NO + o] * t.Fc[o * a.nc + lane];
+          s_cmag[s][lane] = kMagPerLn * logf(max_nan(f, 1.17549435e-38f));
+        }
       }
-    }
-    __syncwarp();
-    float term = 0.0f;
-    if (lane < a.nc) {
-      // the triple split is on the (padded) contrast count, as in the Pallas kernels
-      float contrast = 0.0f;
-      if (n == 2 || (n == 3 && lane < a.nc / 2)) contrast = s_cmag[1][lane] - s_cmag[0][lane];
-      else if (n == 3) contrast = s_cmag[2][lane] - s_cmag[0][lane];
-      term = sq((contrast - t.cobs[lane]) / t.cobs[a.nc + lane]);
-    }
-    const float chi_c = warp_sum(term);
+      __syncwarp();
+      float term = 0.0f;
+      if (lane < a.nc) {
+        // the triple split is on the (padded) contrast count, as in the Pallas kernels
+        float contrast = 0.0f;
+        if (n == 2 || (n == 3 && lane < a.nc / 2)) contrast = s_cmag[1][lane] - s_cmag[0][lane];
+        else if (n == 3) contrast = s_cmag[2][lane] - s_cmag[0][lane];
+        term = sq((contrast - t.cobs[lane]) / t.cobs[a.nc + lane]);
+      }
+      chi_c = warp_sum(term);
 
-    // --- unresolved photometry, one lane per band
-    term = 0.0f;
-    if (lane < a.npf) {
-      float f = 0.0f;
-      for (int o = 0; o < a.NO; ++o) f += wc[o] * t.Fp[o * a.npf + lane];
-      float phot = kMagPerLn * logf(max_nan(f / t.pobs[2 * a.npf + lane], 1.17549435e-38f));
-      if (av > 0.0f) phot = phot + av * t.pobs[3 * a.npf + lane];
-      term = sq((phot - t.pobs[lane]) / t.pobs[a.npf + lane]);
+      // --- unresolved photometry, one lane per band
+      term = 0.0f;
+      if (lane < a.npf) {
+        float f = 0.0f;
+        for (int o = 0; o < a.NO; ++o) f += wc[o] * t.Fp[o * a.npf + lane];
+        float phot = kMagPerLn * logf(max_nan(f / t.pobs[2 * a.npf + lane], 1.17549435e-38f));
+        if (av > 0.0f) phot = phot + av * t.pobs[3 * a.npf + lane];
+        term = sq((phot - t.pobs[lane]) / t.pobs[a.npf + lane]);
+      }
+      chi_p = a.fit_plx ? warp_sum(term) : 0.0f;
     }
-    const float chi_p = a.fit_plx ? warp_sum(term) : 0.0f;
 
     // --- priors (batched.log_prior_batch)
     float lp = 0.0f;
-    if (a.fit_plx) {
-      const float dist_pc = 1.0f / max_nan(plx, (float)1e-12);
-      const float logd = logf(max_nan(dist_pc, (float)1e-3));
-      const float mu = warp_tent_dot(t.av_tent, t.av_vals, a.nav, logd);
-      const float sig = warp_tent_dot(t.av_tent, t.av_vals + a.nav, a.nav, logd);
-      lp += -0.5f * sq((av - mu) / sig);
-    }
-    term = 0.0f;
-    if (lane < a.ndim && t.prior[lane] != 0.0f)
-      term = -0.5f * sq((pw[lane] - t.prior[lane]) / t.prior[a.ndim + lane]);
-    lp += warp_sum(term);
-
-    if (a.rad_prior) {
-      float mrad[kMaxSpec];
-      for (int s = 0; s < n; ++s) {
-        const float t2 = teff[s] * teff[s];
-        mrad[s] = sqrtf(lum[s] * (float)3.839e33 /
-                        ((float)(4.0 * 3.141592653589793 * 5.670374e-5) * (t2 * t2))) /
-                  (float)6.957e10;
+    bool ok = true;
+    if constexpr (kPriors) {
+      if (a.fit_plx) {
+        const float dist_pc = 1.0f / max_nan(plx, (float)1e-12);
+        const float logd = logf(max_nan(dist_pc, (float)1e-3));
+        const float mu = warp_tent_dot(t.av_tent, t.av_vals, a.nav, logd);
+        const float sig = warp_tent_dot(t.av_tent, t.av_vals + a.nav, a.nav, logd);
+        lp += -0.5f * sq((av - mu) / sig);
       }
-      if (a.fit_plx) lp += -0.5f * sq((r1 - mrad[0]) / (a.rad_sigma * mrad[0]));
-      for (int s = 1; s < n; ++s) {
-        const float mv = mrad[s] / mrad[0];
-        lp += -0.5f * sq((ratio[s] - mv) / (a.rad_sigma * mv));
-      }
-    }
+      float term = 0.0f;
+      if (lane < a.ndim && t.prior[lane] != 0.0f)
+        term = -0.5f * sq((pw[lane] - t.prior[lane]) / t.prior[a.ndim + lane]);
+      lp += warp_sum(term);
 
-    // --- bounds (batched._bounds_ok_batch)
-    bool ok = av >= 0.0f;
-    for (int s = 0; s < n; ++s) ok = ok && teff[s] <= ts.tmax && teff[s] >= ts.tmin;
-    for (int s = 1; s < n; ++s) ok = ok && ratio[s] >= 0.05f;
-    if (a.fit_plx) {
-      ok = ok && r1 >= 0.05f;
-      if (a.dist_fit) {
-        const float plx_hi = a.spectrum_weight == 0.0f ? 0.01f : 0.25f;
-        const float plx_lo = n <= 2 ? (float)(1.0 / 3000.0) : (float)(1.0 / 1000.0);
-        if (n <= 2) ok = ok && r1 <= 1.5f;
-        ok = ok && plx >= plx_lo && plx <= plx_hi;
+      if (a.rad_prior) {
+        float mrad[kMaxSpec];
+        for (int s = 0; s < n; ++s) {
+          const float t2 = teff[s] * teff[s];
+          mrad[s] = sqrtf(lum[s] * (float)3.839e33 /
+                          ((float)(4.0 * 3.141592653589793 * 5.670374e-5) * (t2 * t2))) /
+                    (float)6.957e10;
+        }
+        if (a.fit_plx) lp += -0.5f * sq((r1 - mrad[0]) / (a.rad_sigma * mrad[0]));
+        for (int s = 1; s < n; ++s) {
+          const float mv = mrad[s] / mrad[0];
+          lp += -0.5f * sq((ratio[s] - mv) / (a.rad_sigma * mv));
+        }
+      }
+
+      // --- bounds (batched._bounds_ok_batch)
+      ok = av >= 0.0f;
+      for (int s = 0; s < n; ++s) ok = ok && teff[s] <= ts.tmax && teff[s] >= ts.tmin;
+      for (int s = 1; s < n; ++s) ok = ok && ratio[s] >= 0.05f;
+      if (a.fit_plx) {
+        ok = ok && r1 >= 0.05f;
+        if (a.dist_fit) {
+          const float plx_hi = a.spectrum_weight == 0.0f ? 0.01f : 0.25f;
+          const float plx_lo = n <= 2 ? (float)(1.0 / 3000.0) : (float)(1.0 / 1000.0);
+          if (n <= 2) ok = ok && r1 <= 1.5f;
+          ok = ok && plx >= plx_lo && plx <= plx_hi;
+        }
       }
     }
     if (lane == 0) {
@@ -231,9 +253,15 @@ __device__ inline float posterior_eval(const PosteriorConfig& a, const Posterior
   __syncthreads();
 
   float chi_spec = 0.0f;
-  if (a.spectrum_weight != 0.0f)
-    chi_spec = spectrum_block(wc, av, t.D, a.NO, a.nd, t.kd, t.data, t.inv_err, t.VpinvT, t.VT,
-                              ts.med_data, a.iters, true, a.recip, ts.stat, row, &scratch);
+  if constexpr (kSpectrum) {
+    if (a.spectrum_weight != 0.0f)
+      chi_spec = spectrum_block(wc, av, t.D, a.NO, a.nd, t.kd, t.data, t.inv_err, t.VpinvT,
+                                t.VT, ts.med_data, a.iters, true, a.recip, ts.stat, row, &scratch);
+  } else {
+    float acc = 0.0f;
+    for (int o = threadIdx.x; o < a.NO; o += blockDim.x) acc += wc[o];
+    chi_spec = block_sum(acc, &scratch);
+  }
   const float cs = ts.spec_scale * chi_spec + s_chi_c + s_chi_p;
   const float ll = isnan(cs) ? -INFINITY : -0.5f * cs;
   return isfinite(s_lp) ? s_lp + ll : -INFINITY;

@@ -93,7 +93,12 @@ __device__ inline float row_median(const float* row, int nd, int r1, int r2, int
 
 // K2 (_spectrum_block) for one walker; block-wide, every thread returns the
 // chi^2.  wc: the walker's blend weights [NO] in shared memory; row: nd
-// floats of dynamic shared memory.
+// floats of dynamic shared memory.  kNoExp (the experiment S4,
+// spectrum_recip.cu, only) swaps the extinction exp for the same-shape linear
+// term 1 + LN10_04*av*kd, evaluated as (LN10_04*av)*kd + 1 with _rn
+// intrinsics so that nvcc does not contract it into an FMA; K1-K5 take the
+// default and compile as before.
+template <bool kNoExp = false>
 __device__ inline float spectrum_block(const float* wc, float av, const float* __restrict__ D,
                                        int NO, int nd, const float* __restrict__ kd,
                                        const float* __restrict__ data,
@@ -110,7 +115,8 @@ __device__ inline float spectrum_block(const float* wc, float av, const float* _
       const float w = wc[o];
       if (w != 0.0f) acc = fmaf(w, __ldg(D + (size_t)o * nd + j), acc);
     }
-    row[j] = extinct ? acc * expf(ak * kd[j]) : acc;
+    if constexpr (kNoExp) row[j] = extinct ? acc * __fadd_rn(__fmul_rn(ak, kd[j]), 1.0f) : acc;
+    else row[j] = extinct ? acc * expf(ak * kd[j]) : acc;
   }
   __syncthreads();
 

@@ -53,7 +53,9 @@ _F32 = torch.float32
 # kernel launches per wrapper, for showing that a run went through the kernels
 LAUNCHES = {"log_posterior_fused": 0, "spectrum_chi2": 0, "spectrum_chi2_fleet": 0,
             "log_posterior_fleet_fused": 0, "model_extinct": 0, "median_nonneg": 0,
-            "renorm_partials": 0, "resid_chi2": 0}
+            "renorm_partials": 0, "resid_chi2": 0,
+            # the cost-attribution experiments (mcmc_spec_tpu_torch.scripts)
+            "fma_chains": 0, "median_only": 0, "spectrum_recip": 0, "posterior_sections": 0}
 # the dynamic shared memory a Hopper block may opt into (227 KB), less a margin
 # for the kernels' static shared memory: the one-block-per-walker kernels hold
 # a model row of nd floats and their blend weights in it
@@ -194,17 +196,19 @@ def _tent_w(tc, q):
 
 
 def _spectrum_block(Wcomb, av, D, kd, data, inv_err, VpinvT, VT, med_data, iters,
-                    renorm=True, recip=0, fleet_stat=None):
+                    renorm=True, recip=0, fleet_stat=None, noexp=False):
     """K2: model, extinction, median match, continuum renorm, chi^2 ([B, 1]).
 
     ``av`` is [B, 1]; the data-axis operands are [nd] or [3, nd].  The model
     product is the full f32 matmul whatever the matmul-passes dial.  Without
     ``fleet_stat`` the median is the whole row's and the chi^2 the mean (K1,
     K3); with ``fleet_stat = (r1, r2, inv_n)`` the median takes those ranks
-    and the chi^2 is ``sum * inv_n`` (K4, K5).
+    and the chi^2 is ``sum * inv_n`` (K4, K5).  ``noexp`` (the experiment S4
+    only) swaps the extinction exp for the linear term ``1 + LN10_04*av*kd``.
     """
     model = Wcomb @ D
-    trans = torch.where(av > 0, torch.exp(LN10_04 * av * kd[None, :]),
+    ext = LN10_04 * av * kd[None, :]
+    trans = torch.where(av > 0, 1.0 + ext if noexp else torch.exp(ext),
                         torch.ones((), dtype=_F32, device=model.device))
     model = model * trans
     if fleet_stat is None:
@@ -244,6 +248,11 @@ _SIGNATURES = {
     "median_kary_launch": [_P] * 3 + [_I] * 4 + [_P],
     "renorm_partials_launch": [_P] * 5 + [_I] * 3 + [_P],
     "resid_chi2_launch": [_P] * 7 + [_I] * 4 + [_P],
+    # the cost-attribution experiments (mcmc_spec_tpu_torch.scripts)
+    "fma_chains_launch": [_P] * 2 + [ctypes.c_longlong] + [_I] + [_P],
+    "median_only_launch": [_P] * 2 + [_I] * 3 + [_P],
+    "spectrum_recip_launch": [_P] * 10 + [_I] * 6 + [_P],
+    "posterior_sections_launch": [_P] * 20 + [_I] * 14 + [_F] * 2 + [_I] + [_P],
 }
 
 
@@ -412,14 +421,22 @@ def log_posterior_fused_reference(p, tgt):
                             tgt.spectrum_weight * _chi2_weight(tgt), iters, recip)
 
 
-def _posterior_plain(p, cfg, t, tmin, tmax, med_data, spec_scale, iters, recip, fleet_stat=None):
+ALL_SECTIONS = (True, True, True, True)
+
+
+def _posterior_plain(p, cfg, t, tmin, tmax, med_data, spec_scale, iters, recip, fleet_stat=None,
+                     sections=ALL_SECTIONS):
     """The posterior kernels' arithmetic for walkers ``p`` [B, ndim] of one target.
 
     ``cfg`` carries the static configuration (nspec, fit_plx, ...), ``t`` the
     target's operand tables.  K1: ``spec_scale`` is the spectrum weight times
     the filter count and ``fleet_stat`` is None; one target of K5: the
     per-target ``spec_scale`` and ``fleet_stat = (r1, r2, inv_n)``.
+    ``sections`` = (phot, priors, spectrum, W) switches sections off for the
+    cost ablation S12 (``scripts.ablate_fused_sections``), each replaced by
+    the stub of ``posterior_body.cuh``; K1 and K5 keep them all on.
     """
+    do_phot, do_priors, do_spectrum, do_w = sections
     n = cfg.nspec
     nc = t["cobs"].shape[1]
     tiny = torch.finfo(_F32).tiny
@@ -441,9 +458,13 @@ def _posterior_plain(p, cfg, t, tmin, tmax, med_data, spec_scale, iters, recip, 
 
     Wcomb, cmags, mrads = None, [], []
     for s in range(n):
-        wm = _tent_w(t["mist_tent"], teffs[s])
-        logg_s = (wm * t["mist_vals"][0][None, :]).sum(dim=1, keepdim=True)
-        sWk = scales[s] * (_tent_w(t["tentT"], teffs[s]) * _tent_w(t["tentG"], logg_s))
+        if do_w:
+            wm = _tent_w(t["mist_tent"], teffs[s])
+            logg_s = (wm * t["mist_vals"][0][None, :]).sum(dim=1, keepdim=True)
+            Wk = _tent_w(t["tentT"], teffs[s]) * _tent_w(t["tentG"], logg_s)
+        else:  # stub: every grid point weighted
+            Wk = teffs[s] * torch.full((1, t["tentT"].shape[1]), 1e-4, dtype=_F32, device=p.device)
+        sWk = scales[s] * Wk
         Wcomb = sWk if Wcomb is None else Wcomb + sWk
         cmags.append(-2.5 / LN10 * torch.log(torch.clamp(sWk @ t["Fc"], min=tiny)))
         if cfg.rad_prior:
@@ -465,8 +486,12 @@ def _posterior_plain(p, cfg, t, tmin, tmax, med_data, spec_scale, iters, recip, 
     phot = torch.where(av > 0, phot + av * pobs[3][None, :], phot)
     chi_c = (((contrasts - cobs[0][None, :]) / cobs[1][None, :]) ** 2).sum(dim=1, keepdim=True)
     chi_p = (((phot - pobs[0][None, :]) / pobs[1][None, :]) ** 2).sum(dim=1, keepdim=True)
+    if not do_phot:  # stub: no band terms
+        chi_c = chi_p = torch.zeros_like(av)
 
-    if cfg.spectrum_weight != 0.0:
+    if not do_spectrum:  # stub: the blend weights' sum
+        chi_spec = Wcomb.sum(dim=1, keepdim=True)
+    elif cfg.spectrum_weight != 0.0:
         chi_spec = _spectrum_block(Wcomb, av, t["D"], t["kd"], t["data"], t["inv_err"],
                                    t["VpinvT"], t["VT"], med_data, iters, recip=recip,
                                    fleet_stat=fleet_stat)
@@ -478,6 +503,8 @@ def _posterior_plain(p, cfg, t, tmin, tmax, med_data, spec_scale, iters, recip, 
     ll = torch.where(torch.isnan(cs), neg_inf, -0.5 * cs)
 
     lp = torch.zeros_like(av)
+    if not do_priors:  # stub: no priors and no bounds
+        return torch.where(torch.isfinite(lp), lp + ll, neg_inf)[:, 0]
     if cfg.fit_plx:
         dist_pc = 1.0 / torch.clamp(plx, min=1e-12)
         wav = _tent_w(t["av_tent"], torch.log(torch.clamp(dist_pc, min=1e-3)))
@@ -520,10 +547,24 @@ def log_posterior_fused(p, tgt):
     tensors on ``p``'s device (the dispatch in ``inference.batched`` checks
     eligibility).
     """
-    iters, _, recip = resolve_dials(tgt)
+    resolve_dials(tgt)
     if p.device.type == "cpu":
         return log_posterior_fused_reference(p, tgt)
     _require_cuda(p, "log_posterior_fused")
+    out, args = posterior_launch_args(p, tgt, "log_posterior_fused")
+    if args:
+        _launch("log_posterior_fused_launch", "log_posterior_fused", *args,
+                float(tgt.rad_sigma_frac), _stream(p.device))
+    return out
+
+
+def posterior_launch_args(p, tgt, kernel: str):
+    """(out, args) of a one-target posterior kernel over walkers ``p`` (CUDA) on
+    ``tgt``'s tables: ``out`` the [B] result, ``args`` the launch arguments from
+    ``scal`` to the spectrum scale that K1 and the section ablation S12
+    (``scripts.ablate_fused_sections``) share, None when B is 0.  Each caller
+    appends its own last scalar and the stream."""
+    iters, _, recip = resolve_dials(tgt)
     dev = p.device
     t = kernel_tables(tgt)
     B, ndim = p.shape
@@ -532,10 +573,10 @@ def log_posterior_fused(p, tgt):
     nc, npf = tgt.cmag.shape[0], tgt.pmag.shape[0]
     nm, nav = tgt.mist_teff_nodes.shape[0], tgt.av_logd_nodes.shape[0]
     if ndim != tgt.ndim:
-        raise ValueError(f"log_posterior_fused: p has {ndim} parameters, target needs {tgt.ndim}")
+        raise ValueError(f"{kernel}: p has {ndim} parameters, target needs {tgt.ndim}")
     p = p.contiguous()
     _check(p, "p", dev, (B, ndim))
-    # in the pointer order of log_posterior_fused_launch, between p and out
+    # in the pointer order of the launch functions, between p and out
     tables = {"D": (NO, nd), "kd": (nd,), "data": (nd,), "inv_err": (nd,),
               "VpinvT": (3, nd), "VT": (3, nd), "tentT": (4, NO), "tentG": (4, NO),
               "mist_tent": (4, nm), "mist_vals": (2, nm), "av_tent": (4, nav),
@@ -546,14 +587,11 @@ def log_posterior_fused(p, tgt):
         _check(t[name], name, dev, shape)
     out = torch.empty(B, dtype=_F32, device=dev)
     if B == 0:
-        return out
-    _launch("log_posterior_fused_launch", "log_posterior_fused",
-            t["scal"].data_ptr(), p.data_ptr(), *(t[name].data_ptr() for name in tables),
-            out.data_ptr(), B, ndim, NO, nd, nm, nav, nc, npf, tgt.nspec,
-            int(tgt.fit_plx), int(tgt.dist_fit), int(tgt.rad_prior), iters, recip,
-            float(tgt.spectrum_weight), tgt.spectrum_weight * _chi2_weight(tgt),
-            float(tgt.rad_sigma_frac), _stream(dev))
-    return out
+        return out, None
+    return out, (t["scal"].data_ptr(), p.data_ptr(), *(t[k].data_ptr() for k in tables),
+                 out.data_ptr(), B, ndim, NO, nd, nm, nav, nc, npf, tgt.nspec,
+                 int(tgt.fit_plx), int(tgt.dist_fit), int(tgt.rad_prior), iters, recip,
+                 float(tgt.spectrum_weight), tgt.spectrum_weight * _chi2_weight(tgt))
 
 
 # ---------------------------------------------------------------------------
