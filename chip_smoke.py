@@ -38,7 +38,15 @@ Phases, each of which exits non-zero on failure:
    S12 fused-posterior sections, every variant on 16,384 + 5 walkers at both
    dial sets, and ``full`` bit for bit against K1), then the three
    experiments' ``main()`` at full size (32,768 walkers, nd = 1792) with
-   launch counts.
+   launch counts;
+9. the K1 redesign experiments against their plain versions on the card: S8
+   walker-lanes epilogue on 16,384 + 5 walkers at both dial sets, also
+   against K1; S9 early-exit median (both variants) on the script's 8,192
+   rows and S7 16-bit-coarse median on 32,768 rows, at nd = 1792 and 1791,
+   bit for bit, also against ``np.median`` and S11; S5's four program orders
+   on the synthetic and the production blend weights, ``stagger2``/``4`` bit
+   for bit against ``baseline`` and ``baseline`` against S4 at recip 2; then
+   the four experiments' ``main()`` at full size with launch counts.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its bytes (each input read once, the
@@ -156,6 +164,15 @@ def compare(got, ref, rtol=RTOL):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def library_median(x):
+    """np.median of each row of ``x`` from ``torch.kthvalue``'s order statistics ([NW, 1])."""
+    r1 = (x.shape[1] + 1) // 2
+    lib = torch.kthvalue(x, r1, dim=1, keepdim=True).values
+    if x.shape[1] % 2 == 0:
+        lib = 0.5 * (lib + torch.kthvalue(x, r1 + 1, dim=1, keepdim=True).values)
+    return lib
 
 
 def spectrum_ops(Wcomb, av, nd, iters, renorm=True):
@@ -914,9 +931,7 @@ def experiments_checks(dev, tgt, truth):
         xm = torch.randn((NWALK_BENCH, n), generator=gen, device=dev).abs()
         xm[:, : n // 3] = xm[:, :1]  # ties
         r1 = (n + 1) // 2
-        lib = torch.kthvalue(xm, r1, dim=1, keepdim=True).values
-        if n % 2 == 0:
-            lib = 0.5 * (lib + torch.kthvalue(xm, r1 + 1, dim=1, keepdim=True).values)
+        lib = library_median(xm)
         for iters in (31, 15):
             got = vb.median_only(xm, iters)
             torch.cuda.synchronize()
@@ -1034,6 +1049,183 @@ def experiments_phase(dev, tgt, truth):
     return {**res, "launches": launches, "mains": mains}
 
 
+def redesign_checks(dev, tgt, truth):
+    """S8, S9, S7 and S5 against their plain versions on the card (S8 also against
+    K1, S9 and S7 against ``np.median`` semantics and S11, S5 ``baseline`` against S4).
+    Returns the max abs errors and the report's times, bounds and library times."""
+    from mcmc_spec_tpu_torch.bench_target import init_walker_batch
+    from mcmc_spec_tpu_torch.inference.batched import _forward_small
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.scripts import try_fast_recip as fr
+    from mcmc_spec_tpu_torch.scripts import try_mxu_overlap as s5
+    from mcmc_spec_tpu_torch.scripts import try_packed_median as s7
+    from mcmc_spec_tpu_torch.scripts import try_transposed_epilogue as s8
+    from mcmc_spec_tpu_torch.scripts import try_whileloop_median as s9
+    from mcmc_spec_tpu_torch.scripts import vpu_microbench as vb
+
+    nd = tgt.D.shape[2]
+    bits = lambda a: a.contiguous().view(torch.int32)
+    same_bits = lambda a, b: int((bits(a) == bits(b)).all(dim=-1).sum())
+    errs, times, bounds, library = {}, {}, {}, {}
+
+    # S8: 16,384 + 5 edge walkers at both dial sets, against its plain version and K1
+    nhalf = NWALK_BENCH // 2
+    P = torch.cat([init_walker_batch(tgt, truth, nhalf, seed=5), edge_walkers(truth, tgt)])
+    for label, dials, allowed in (("exact dials (31, 6, 0)", EXACT, 0),
+                                  ("production dials (14, 3, 2)", PROD,
+                                   int(PROD_MAX_OUTSIDE_FRAC * nhalf))):
+        t = dataclasses.replace(tgt, **dials)
+        got = s8.posterior_transposed(P, t)
+        torch.cuda.synchronize()
+        out_p, rel_p, err_p = compare(got, s8.posterior_transposed_reference(P, t))
+        out_k, rel_k, _ = compare(got, ck.log_posterior_fused(P, t))
+        if dials is EXACT:
+            errs["posterior_transposed"] = err_p
+        n_fin = int(torch.isfinite(got).sum())
+        print(f"[S8 posterior_transposed {label}] {P.shape[0]} walkers ({n_fin} finite): "
+              f"{out_p} outside tolerance of the plain version (allowed {allowed}), max rel err "
+              f"{rel_p:.3e}, max abs err {err_p:.3e}; {out_k} outside tolerance of K1, max rel "
+              f"err {rel_k:.3e}")
+        require(out_p <= allowed and out_k <= allowed,
+                f"S8 {label}: {out_p} walkers outside tolerance of the plain version, {out_k} "
+                "of K1")
+    prod = dataclasses.replace(tgt, **PROD)
+    coords = init_walker_batch(prod, truth, NWALK_BENCH)
+    times["posterior_transposed"] = (
+        cuda_ms(lambda: s8.posterior_transposed(coords, prod)),
+        cuda_ms(lambda: s8.posterior_transposed_reference(coords, prod), reps=5))
+    Wcomb = _forward_small(coords, prod)[4]
+    bounds["posterior_transposed"] = bound(
+        nbytes(coords, *ck.kernel_tables(prod).values()) + 4 * NWALK_BENCH,
+        spectrum_ops(Wcomb, coords[:, prod.nspec], nd, PROD["median_iters"])
+        + posterior_scalar_ops(NWALK_BENCH, prod))
+
+    # S9: the script's rows at nd = 1792 and 1791; both variants bit for bit
+    for n in (nd, ND_EXP_ODD):
+        x = torch.from_numpy(s9.synthetic_rows(s9.NW, n)).to(dev)
+        med, passes = s9.median_adaptive(x)
+        torch.cuda.synchronize()
+        ref, ref_passes = s9.median_adaptive_reference(x)
+        fixed = vb.median_only(x, 31)
+        want = library_median(x)
+        same, same_fixed = same_bits(med, ref), same_bits(fixed, want)
+        same_np = same_bits(med, want)
+        same_passes = bool(torch.equal(passes, ref_passes))
+        print(f"[S9 median_adaptive nd={n}] {x.shape[0]} rows: {same} bit-identical to the plain "
+              f"version, {same_np} to np.median (torch.kthvalue; fixed31, S11: {same_fixed}); "
+              f"passes per row {'equal to' if same_passes else 'DIFFER from'} the plain "
+              f"version's, mean {float(passes.double().mean()):.3f}")
+        require(same == same_np == same_fixed == x.shape[0] and same_passes,
+                f"S9 nd={n}: {x.shape[0] - same} rows differ from the plain version, "
+                f"{x.shape[0] - same_np} from np.median, fixed31 {x.shape[0] - same_fixed}; "
+                f"passes equal {same_passes}")
+        if n == nd:
+            times["median_adaptive"] = (cuda_ms(lambda: s9.median_adaptive(x)),
+                                        cuda_ms(lambda: s9.median_adaptive_reference(x), reps=5))
+            library["median_adaptive"] = cuda_ms(
+                lambda: torch.kthvalue(x, (n + 1) // 2, dim=1))
+            # every sweep of this run's rows: a compare and a count (or min) per point
+            bounds["median_adaptive"] = bound(nbytes(x) + 8 * x.shape[0],
+                                              2 * x.numel() * s9.sweeps_per_row(passes, n))
+    errs["median_adaptive"] = 0.0
+
+    # S7: |N(0, 1)| * 1e-14 rows at nd = 1792 and 1791, bit for bit
+    for n in (nd, ND_EXP_ODD):
+        x = torch.from_numpy(s7.synthetic_rows(s7.NW, n)).to(dev)
+        got = s7.median_packed(x)
+        torch.cuda.synchronize()
+        same = same_bits(got, s7.median_packed_reference(x))
+        same_s11 = same_bits(got, vb.median_only(x, 31))
+        same_lib = same_bits(got, library_median(x))
+        print(f"[S7 median_packed nd={n}] {x.shape[0]} rows: {same} bit-identical to the plain "
+              f"version, {same_s11} to S11 at 31 passes, {same_lib} to np.median (torch.kthvalue)")
+        require(same == same_s11 == same_lib == x.shape[0],
+                f"S7 nd={n}: {x.shape[0] - same} rows differ from the plain version, "
+                f"{x.shape[0] - same_s11} from S11, {x.shape[0] - same_lib} from the library")
+        if n == nd:
+            times["median_packed"] = (cuda_ms(lambda: s7.median_packed(x)),
+                                      cuda_ms(lambda: s7.median_packed_reference(x), reps=5))
+            library["median_packed"] = cuda_ms(lambda: torch.kthvalue(x, (n + 1) // 2, dim=1))
+            # 16 coarse passes (2 keys a word: subtract, mask, popcount, add), 16 fine
+            # passes and the refinement, a compare and a count per point each
+            bounds["median_packed"] = bound(nbytes(x) + 4 * x.shape[0],
+                                            2 * x.numel() * (s7.COARSE_PASSES
+                                                             + s7.FINE_PASSES + 1))
+    errs["median_packed"] = 0.0
+
+    # S5: every mode on the synthetic and the production inputs
+    errs["spectrum_overlap"] = 0.0
+    s4 = fr.synthetic_inputs(dev)
+    for label, args in (("synthetic", s4), ("production", s5.production_inputs(prod, coords))):
+        base = s5.spectrum_overlap(*args, mode="baseline")
+        for mode in s5.MODES:
+            got = s5.spectrum_overlap(*args, mode=mode)
+            torch.cuda.synchronize()
+            ref = s5.spectrum_overlap_reference(*args, mode=mode)
+            if mode == "nomxu" and not bool(torch.isfinite(ref).any()):
+                # the production weights put no walker on grid point 0: every nomxu row is
+                # 0 and every chi^2 NaN, on both sides
+                outside = int((torch.isfinite(got) != torch.isfinite(ref)).sum())
+                line = (f"[S5 spectrum_overlap {mode} {label}] {got.shape[0]} walkers: no "
+                        f"finite value (Wc[:, 0] = 0, a zero row); {outside} differ in finiteness")
+            else:
+                outside, rel, err = compare(got, ref)
+                errs["spectrum_overlap"] = max(errs["spectrum_overlap"], err)
+                line = (f"[S5 spectrum_overlap {mode} {label}] {got.shape[0]} walkers: {outside} "
+                        f"outside tolerance, max rel err {rel:.3e}, max abs err {err:.3e}")
+            if mode in ("stagger2", "stagger4"):
+                same = same_bits(got, base)
+                line += f"; {same} bit-identical to baseline"
+                require(same == got.shape[0], f"S5 {mode} {label}: {got.shape[0] - same} "
+                        "walkers differ from baseline")
+            print(line)
+            require(outside == 0, f"S5 {mode} {label}: {outside} walkers outside tolerance")
+    base = s5.spectrum_overlap(*s4, mode="baseline")
+    same = same_bits(base, fr.spectrum_recip(*s4, recip=s5.RECIP))
+    print(f"[S5 baseline vs S4 recip={s5.RECIP}, iters={s5.ITERS}] {base.shape[0]} walkers: "
+          f"{same} bit-identical")
+    require(same == base.shape[0], f"S5 baseline vs S4: {base.shape[0] - same} walkers differ")
+    times["spectrum_overlap"] = (
+        cuda_ms(lambda: s5.spectrum_overlap(*s4, mode="baseline")),
+        cuda_ms(lambda: s5.spectrum_overlap_reference(*s4, mode="baseline"), reps=5))
+    bounds["spectrum_overlap"] = bound(nbytes(*s4) + 4 * s4[1].shape[0],
+                                       spectrum_ops(s4[1], s4[2], nd, s5.ITERS))
+    for name, (ms, plain_ms) in times.items():
+        print(f"[time {name}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bounds[name][0]:.5f} ms ({bounds[name][1]})"
+              + (f", library (torch.kthvalue) {library[name]:.4f} ms" if name in library else ""))
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
+
+
+def redesign_phase(dev, tgt, truth):
+    """The kernel checks, then the four experiments' ``main()`` at full size: their main
+    path, with its launch counts."""
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.scripts import try_mxu_overlap as s5
+    from mcmc_spec_tpu_torch.scripts import try_packed_median as s7
+    from mcmc_spec_tpu_torch.scripts import try_transposed_epilogue as s8
+    from mcmc_spec_tpu_torch.scripts import try_whileloop_median as s9
+
+    res = redesign_checks(dev, tgt, truth)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    mains = {}
+    for name, main in (("try_transposed_epilogue", s8.main), ("try_whileloop_median", s9.main),
+                       ("try_packed_median", s7.main), ("try_mxu_overlap", s5.main)):
+        t1 = time.perf_counter()
+        print(f"[redesign] python -m mcmc_spec_tpu_torch.scripts.{name}", flush=True)
+        mains[name] = main(device=dev)
+        print(f"[redesign] {name}: {time.perf_counter() - t1:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    print(f"[redesign] the four experiments in {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}")
+    for name in ("posterior_transposed", "median_adaptive", "median_packed", "spectrum_overlap"):
+        require(launches[name] > 0, f"{name} was not launched by the experiments")
+    return {**res, "launches": launches, "mains": mains}
+
+
 def main() -> int:
     dev, smi = device_phase()
     build_phase()
@@ -1048,6 +1240,9 @@ def main() -> int:
     t0 = time.perf_counter()
     eres = experiments_phase(dev, tgt, truth)
     experiments_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rres = redesign_phase(dev, tgt, truth)
+    redesign_s = time.perf_counter() - t0
     lr = lres["rates"]
     print(f"[summary] {smi}: stage-2 {rates['production']:.1f} evals/s (production dials), "
           f"{rates['exact']:.1f} evals/s (exact dials); stage-1 wall {stage1_s:.2f} s; fleet "
@@ -1055,7 +1250,7 @@ def main() -> int:
           f"fused (K5) {fres['fused']['rate']:.1f} evals/s; large nd phase {largend_s:.1f} s: "
           + ", ".join(f"nd={nd} {label} {lr[(nd, label)]['rate']:.1f} evals/s"
                       for nd, label in lr)
-          + f"; experiments phase {experiments_s:.1f} s")
+          + f"; experiments phase {experiments_s:.1f} s; redesign phase {redesign_s:.1f} s")
     k1_ms_prod, k1_plain_prod = kres["times"][("k1", "production")]
     k3_ms, k3_plain = kres["times"][("k3", NWALK_BENCH // 2)]
     rows = [
@@ -1088,6 +1283,15 @@ def main() -> int:
                               "ablate_fused_sections.py:42")):
         rows.append((name, src, f"scripts/{where}", eres["launches"][name], eres["errs"][name],
                      *eres["times"][name], eres["bounds"][name], eres["library"].get(name)))
+    # the K1 redesign experiments, scripts/
+    for name, src, where in (("posterior_transposed", "posterior_transposed.cu",
+                              "try_transposed_epilogue.py:189"),
+                             ("median_adaptive", "median_adaptive.cu",
+                              "try_whileloop_median.py:111"),
+                             ("median_packed", "median_packed.cu", "try_packed_median.py:119"),
+                             ("spectrum_overlap", "spectrum_overlap.cu", "try_mxu_overlap.py:106")):
+        rows.append((name, src, f"scripts/{where}", rres["launches"][name], rres["errs"][name],
+                     *rres["times"][name], rres["bounds"][name], rres["library"].get(name)))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"mcmc_spec_tpu_torch/csrc/{src}",
          "replaces": where, "launches": n,

@@ -64,7 +64,9 @@ __device__ __forceinline__ SpecStat whole_row_stat(int nd) {
 // `iters` bisection passes over the int32 bit pattern for rank r1, each a
 // block-wide count of bits <= mid.  Below 31 passes the bracket midpoint is
 // returned; at 31 the exact order statistic, refined to rank r2 by a count
-// and a masked min.
+// and a masked min.  (bisect_bits and refine_upper below are the same two
+// steps for the median experiments S7 and S9; row_median keeps them written
+// out, because K1-K5 compiled through the helpers to another SASS.)
 __device__ inline float row_median(const float* row, int nd, int r1, int r2, int iters,
                                    BlockScratch* s) {
   int32_t lo = 0, hi = kF32InfBits;
@@ -91,22 +93,47 @@ __device__ inline float row_median(const float* row, int nd, int r1, int r2, int
   return 0.5f * (x1 + x2);
 }
 
-// K2 (_spectrum_block) for one walker; block-wide, every thread returns the
-// chi^2.  wc: the walker's blend weights [NO] in shared memory; row: nd
-// floats of dynamic shared memory.  kNoExp (the experiment S4,
-// spectrum_recip.cu, only) swaps the extinction exp for the same-shape linear
-// term 1 + LN10_04*av*kd, evaluated as (LN10_04*av)*kd + 1 with _rn
-// intrinsics so that nvcc does not contract it into an FMA; K1-K5 take the
-// default and compile as before.
+// `passes` bisection passes of row_median from the bracket [lo, hi], updated in
+// place: the smallest v in it with count(bits <= v) >= rank.  Block-wide.
+__device__ __forceinline__ void bisect_bits(const float* row, int nd, int rank, int passes,
+                                            int32_t& lo, int32_t& hi, BlockScratch* s) {
+  for (int it = 0; it < passes; ++it) {
+    const int32_t mid = lo + ((hi - lo) >> 1);
+    int c = 0;
+    for (int j = threadIdx.x; j < nd; j += blockDim.x) c += (__float_as_int(row[j]) <= mid);
+    if (block_sum_int(c, s) >= rank) hi = mid;
+    else lo = mid + 1;
+  }
+}
+
+// row_median's refinement: the order statistic with bit pattern v1, refined to
+// its mean with the order statistic of rank r2 (1-based; r2 <= 0: none).
+__device__ __forceinline__ float refine_upper(const float* row, int nd, int32_t v1, int r2,
+                                              BlockScratch* s) {
+  const float x1 = __int_as_float(v1);
+  if (r2 <= 0) return x1;
+  int c = 0;
+  float m = INFINITY;
+  for (int j = threadIdx.x; j < nd; j += blockDim.x) {
+    if (__float_as_int(row[j]) <= v1) ++c;
+    else m = min_nan(m, row[j]);
+  }
+  const int cnt1 = block_sum_int(c, s);
+  const float upper = block_min(m, s);
+  return 0.5f * (x1 + (cnt1 >= r2 ? x1 : upper));
+}
+
+// The model row of K2 for one walker: row[j] = (sum_o wc[o] D[o, j]) *
+// 10^(-0.4 av kd[j]), reading only the D rows with a non-zero weight.
+// Block-wide, no barrier: the caller synchronises before the row is read.
+// kNoExp (the experiment S4, spectrum_recip.cu, only) swaps the extinction
+// exp for the same-shape linear term 1 + LN10_04*av*kd, evaluated as
+// (LN10_04*av)*kd + 1 with _rn intrinsics so that nvcc does not contract it
+// into an FMA; K1-K5 take the default.
 template <bool kNoExp = false>
-__device__ inline float spectrum_block(const float* wc, float av, const float* __restrict__ D,
-                                       int NO, int nd, const float* __restrict__ kd,
-                                       const float* __restrict__ data,
-                                       const float* __restrict__ inv_err,
-                                       const float* __restrict__ VpinvT,
-                                       const float* __restrict__ VT, float med_data, int iters,
-                                       bool renorm, int recip, const SpecStat st, float* row,
-                                       BlockScratch* s) {
+__device__ __forceinline__ void build_model_row(const float* wc, float av,
+                                                const float* __restrict__ D, int NO, int nd,
+                                                const float* __restrict__ kd, float* row) {
   const bool extinct = av > 0.0f;
   const float ak = kLn10x04 * av;
   for (int j = threadIdx.x; j < nd; j += blockDim.x) {
@@ -118,8 +145,17 @@ __device__ inline float spectrum_block(const float* wc, float av, const float* _
     if constexpr (kNoExp) row[j] = extinct ? acc * __fadd_rn(__fmul_rn(ak, kd[j]), 1.0f) : acc;
     else row[j] = extinct ? acc * expf(ak * kd[j]) : acc;
   }
-  __syncthreads();
+}
 
+// The rest of K2 on a built row in shared memory: the median match, the
+// continuum renorm and the chi^2.  Block-wide; every thread returns the chi^2.
+__device__ __forceinline__ float spectrum_tail(const float* row, int nd,
+                                               const float* __restrict__ data,
+                                               const float* __restrict__ inv_err,
+                                               const float* __restrict__ VpinvT,
+                                               const float* __restrict__ VT, float med_data,
+                                               int iters, bool renorm, int recip,
+                                               const SpecStat st, BlockScratch* s) {
   const float alpha = med_data / row_median(row, nd, st.r1, st.r2, iters, s);
 
   float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
@@ -145,6 +181,26 @@ __device__ inline float spectrum_block(const float* wc, float av, const float* _
   }
   const float tot = block_sum(acc, s);
   return st.mean ? tot / (float)nd : tot * st.inv_n;
+}
+
+// K2 (_spectrum_block) for one walker; block-wide, every thread returns the
+// chi^2.  wc: the walker's blend weights [NO] in shared memory; row: nd
+// floats of dynamic shared memory.  The row build and the tail are split so
+// that the program-order experiment S5 (spectrum_overlap.cu) can build
+// several rows before their tails.
+template <bool kNoExp = false>
+__device__ inline float spectrum_block(const float* wc, float av, const float* __restrict__ D,
+                                       int NO, int nd, const float* __restrict__ kd,
+                                       const float* __restrict__ data,
+                                       const float* __restrict__ inv_err,
+                                       const float* __restrict__ VpinvT,
+                                       const float* __restrict__ VT, float med_data, int iters,
+                                       bool renorm, int recip, const SpecStat st, float* row,
+                                       BlockScratch* s) {
+  build_model_row<kNoExp>(wc, av, D, NO, nd, kd, row);
+  __syncthreads();
+  return spectrum_tail(row, nd, data, inv_err, VpinvT, VT, med_data, iters, renorm, recip, st,
+                       s);
 }
 
 }  // namespace mcmc_spec

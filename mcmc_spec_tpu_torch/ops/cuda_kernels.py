@@ -55,7 +55,10 @@ LAUNCHES = {"log_posterior_fused": 0, "spectrum_chi2": 0, "spectrum_chi2_fleet":
             "log_posterior_fleet_fused": 0, "model_extinct": 0, "median_nonneg": 0,
             "renorm_partials": 0, "resid_chi2": 0,
             # the cost-attribution experiments (mcmc_spec_tpu_torch.scripts)
-            "fma_chains": 0, "median_only": 0, "spectrum_recip": 0, "posterior_sections": 0}
+            "fma_chains": 0, "median_only": 0, "spectrum_recip": 0, "posterior_sections": 0,
+            # the K1 redesign experiments (mcmc_spec_tpu_torch.scripts)
+            "posterior_transposed": 0, "median_adaptive": 0, "median_packed": 0,
+            "spectrum_overlap": 0}
 # the dynamic shared memory a Hopper block may opt into (227 KB), less a margin
 # for the kernels' static shared memory: the one-block-per-walker kernels hold
 # a model row of nd floats and their blend weights in it
@@ -128,16 +131,20 @@ def _div(num, den, recip: int):
     return num * _fast_recip(den, recip)
 
 
-def _row_order_stat_bits(mi, rank, iters: int = 31, midpoint: bool = False):
+def _row_order_stat_bits(mi, rank, iters: int = 31, midpoint: bool = False, lo=None, hi=None):
     """Smallest int32 bit value v per row with count(mi <= v) >= rank.
 
-    ``mi``: [B, nd] int32 bit patterns of non-negative f32.  31 bisection
-    passes cover the bit range exactly; fewer leave a bracket whose upper
-    end (or, with ``midpoint``, its midpoint) is returned.
+    ``mi``: [B, nd] int32 bit patterns of non-negative f32 (or any int32 keys
+    with a bracket).  The search starts from the bracket [``lo``, ``hi``]
+    ([B, 1] int32; by default [0, +inf's pattern]), where 31 bisection passes
+    cover the bit range exactly; fewer leave a bracket whose upper end (or,
+    with ``midpoint``, its midpoint) is returned.
     """
     B = mi.shape[0]
-    lo = torch.zeros((B, 1), dtype=torch.int32, device=mi.device)
-    hi = torch.full((B, 1), _F32_INF_BITS, dtype=torch.int32, device=mi.device)
+    if lo is None:
+        lo = torch.zeros((B, 1), dtype=torch.int32, device=mi.device)
+    if hi is None:
+        hi = torch.full((B, 1), _F32_INF_BITS, dtype=torch.int32, device=mi.device)
     for _ in range(iters):
         mid = lo + ((hi - lo) >> 1)
         ge = (mi <= mid).sum(dim=1, keepdim=True) >= rank
@@ -168,8 +175,17 @@ def _row_median_ranks(model, r1: int, r2: int, iters: int):
     """
     mi = model.contiguous().view(torch.int32)
     v1 = _row_order_stat_bits(mi, r1, iters, midpoint=iters < 31)
+    if iters < 31:
+        return v1.view(_F32)
+    return _refine_upper(model, mi, v1, r2)
+
+
+def _refine_upper(model, mi, v1, r2: int):
+    """The order statistic with bit pattern ``v1`` [B, 1] of each row of ``model``
+    (``mi`` its patterns), refined to its mean with the order statistic ``r2``
+    (1-based; ``r2 = 0``: no refinement) by a count and a masked min ([B, 1])."""
     x1 = v1.view(_F32)
-    if iters < 31 or r2 <= 0:
+    if r2 <= 0:
         return x1
     cnt1 = (mi <= v1).sum(dim=1, keepdim=True)
     bigger = torch.where(mi > v1, model, torch.full_like(model, math.inf))
@@ -253,6 +269,11 @@ _SIGNATURES = {
     "median_only_launch": [_P] * 2 + [_I] * 3 + [_P],
     "spectrum_recip_launch": [_P] * 10 + [_I] * 6 + [_P],
     "posterior_sections_launch": [_P] * 20 + [_I] * 14 + [_F] * 2 + [_I] + [_P],
+    # the K1 redesign experiments (mcmc_spec_tpu_torch.scripts)
+    "posterior_transposed_launch": [_P] * 20 + [_I] * 14 + [_F] * 2 + [_P],
+    "median_adaptive_launch": [_P] * 3 + [_I] * 2 + [_P],
+    "median_packed_launch": [_P] * 2 + [_I] * 2 + [_P],
+    "spectrum_overlap_launch": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 

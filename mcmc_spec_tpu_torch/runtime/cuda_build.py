@@ -22,7 +22,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("log_posterior_fused.cu", "spectrum_chi2.cu", "spectrum_chi2_fleet.cu",
            "log_posterior_fleet_fused.cu", "model_extinct.cu", "median_kary.cu",
-           "segmented_stats.cu", "microbench.cu", "spectrum_recip.cu", "posterior_sections.cu")
+           "segmented_stats.cu", "microbench.cu", "spectrum_recip.cu", "posterior_sections.cu",
+           "posterior_transposed.cu", "median_adaptive.cu", "median_packed.cu",
+           "spectrum_overlap.cu")
 HEADERS = ("block_common.cuh", "spectrum_block.cuh", "posterior_body.cuh")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 # no --use_fast_math: the tolerances assume libm expf/logf and true division.

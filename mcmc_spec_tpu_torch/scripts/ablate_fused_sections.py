@@ -53,17 +53,16 @@ VARIANTS = {
 _F32 = torch.float32
 
 
-def check_scope(tgt) -> None:
-    """The JAX variant's branch of the posterior, or ``ValueError``."""
+def check_scope(tgt, kernel="posterior_sections") -> None:
+    """The JAX variant's branch of the posterior, or ``ValueError`` naming ``kernel``."""
     bad = [why for why, off in (("nspec != 2", tgt.nspec != 2),
                                 ("no fitted parallax", not tgt.fit_plx),
                                 ("no distance bounds", not tgt.dist_fit),
                                 ("a radius prior", tgt.rad_prior),
                                 ("spectrum weight 0", tgt.spectrum_weight == 0.0)) if off]
     if bad:
-        raise ValueError("posterior_sections covers a binary with a fitted parallax, distance "
-                         "bounds, no radius prior and a spectrum: this target has "
-                         + ", ".join(bad))
+        raise ValueError(f"{kernel} covers a binary with a fitted parallax, distance bounds, "
+                         "no radius prior and a spectrum: this target has " + ", ".join(bad))
 
 
 def _variant(variant: str) -> int:
