@@ -46,7 +46,16 @@ Phases, each of which exits non-zero on failure:
    bit for bit, also against ``np.median`` and S11; S5's four program orders
    on the synthetic and the production blend weights, ``stagger2``/``4`` bit
    for bit against ``baseline`` and ``baseline`` against S4 at recip 2; then
-   the four experiments' ``main()`` at full size with launch counts.
+   the four experiments' ``main()`` at full size with launch counts;
+10. fleet order and launch probes: S6 (K4's body under an explicit grid order)
+   on the ragged fleet of phase 6, both orders at both dial sets, bit for bit
+   against K4 and within the gate of its plain version; S1-S3 (trivial
+   kernels with K1's operands: ``trivial_probe``, ``bisect_probe``,
+   ``bisect2_probe``) against their plain versions on the scripts' own
+   numpy-seeded inputs at full size, every configuration; then the four
+   scripts' ``main()`` at full size with launch counts.  The probes' kernel
+   time in the report is per launch in a CUDA graph of 50; the phase prints
+   its wall time against a 20 s budget.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its bytes (each input read once, the
@@ -59,7 +68,7 @@ multiply chains of S10 count one operation per multiply and per add, so their
 bound holds them against 67 TFLOP/s, twice the rate of one multiply per FP32
 lane per clock (S10 measures the latter).
 
-The line before the last is the kernel report (JSON); the last line is
+The line before the last is the kernel report (JSON, twenty kernels); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -91,6 +100,8 @@ LARGE_ANNEAL_STEPS, LARGE_SAMPLE_STEPS = 8, 64
 LARGE_WARMUP, LARGE_TIMED = 16, 128
 CROSSOVER_ND = (4096, 8192, 16384, 32768, 65536)
 ND_EXP_ODD = 1791  # S11's odd row
+PROBES_BUDGET_S = 20  # phase 10's wall-time budget, printed beside its time
+TOTAL_RTOL = 1e-5  # S3's full table totals against the plain ones (phase 10)
 
 
 class PhaseError(RuntimeError):
@@ -1226,6 +1237,187 @@ def redesign_phase(dev, tgt, truth):
     return {**res, "launches": launches, "mains": mains}
 
 
+def probes_checks(dev):
+    """S6 against K4 (bit for bit) and its plain version on the ragged fleet of phase 6,
+    S1-S3 against their plain versions at full size, every variant.  Returns the max abs
+    errors, the report's times (graph and eager), bounds and library times."""
+    from mcmc_spec_tpu_torch.bench_target import init_walker_batch
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.scripts import dma_probe as s1
+    from mcmc_spec_tpu_torch.scripts import dma_probe_bisect as s2
+    from mcmc_spec_tpu_torch.scripts import dma_probe_bisect2 as s3
+    from mcmc_spec_tpu_torch.scripts import try_fleet_grid_order as s6
+    from mcmc_spec_tpu_torch.scripts.timing import graph_timer
+
+    bits = lambda a: a.contiguous().view(torch.int32)
+    errs, times, bounds, library = {}, {}, {}, {}
+
+    # S6: the ragged padded fleet, 9 x (4096 + 5 edge walkers), both dial sets and orders
+    fleet, singles, truth = build_fleet(dev)
+    cloud = torch.stack([init_walker_batch(t, truth, NW_FLEET, seed=1 + i)
+                         for i, t in enumerate(singles)])
+    P = torch.cat([cloud, torch.stack([edge_walkers(truth, t) for t in singles])], dim=1)
+    W, av = fleet_wcomb(P, fleet), P[..., fleet.nspec].contiguous()
+    n = P.shape[0] * P.shape[1]
+    errs["spectrum_chi2_fleet_2d"] = 0.0
+    for label, dials, allowed in (("exact dials (31, 6, 0)", EXACT, 0),
+                                  ("production dials (14, 3, 2)", PROD,
+                                   int(PROD_MAX_OUTSIDE_FRAC * NTGT * NW_FLEET))):
+        fl = dataclasses.replace(fleet, **dials)
+        k4 = ck.spectrum_chi2_fleet(W, av, fl)
+        ref = s6.spectrum_chi2_fleet_2d_reference(W, av, fl)
+        for order in s6.ORDERS:
+            got = s6.spectrum_chi2_fleet_2d(W, av, fl, order)
+            torch.cuda.synchronize()
+            same = int((bits(got) == bits(k4)).sum())
+            outside, rel, err = compare(got.flatten(), ref.flatten())
+            if dials is EXACT:
+                errs["spectrum_chi2_fleet_2d"] = max(errs["spectrum_chi2_fleet_2d"], err)
+            print(f"[S6 spectrum_chi2_fleet_2d {order} {label}] {n} walkers: {same} "
+                  f"bit-identical to K4; {outside} outside tolerance of the plain version "
+                  f"(allowed {allowed}), max rel err {rel:.3e}, max abs err {err:.3e}")
+            require(same == n, f"S6 {order} {label}: {n - same} walkers differ from K4")
+            require(outside <= allowed, f"S6 {order} {label}: {outside} walkers outside "
+                    "tolerance")
+    # times at production dials on the 9 x 4096 cloud, K4 and the two orders in turns
+    prod = dataclasses.replace(fleet, **PROD)
+    Wc, avc = fleet_wcomb(cloud, prod), cloud[..., fleet.nspec].contiguous()
+    fns = {"K4": lambda: ck.spectrum_chi2_fleet(Wc, avc, prod)}
+    fns.update({o: (lambda o=o: s6.spectrum_chi2_fleet_2d(Wc, avc, prod, o)) for o in s6.ORDERS})
+    order_ms = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        order_ms[k].append(cuda_ms(fns[k]))
+    order_ms = {k: min(v) for k, v in order_ms.items()}
+    print(f"[time S6 production] {NTGT} x {NW_FLEET} walkers, in turns K4, target_major, "
+          f"walker_major and back, least of two: " + ", ".join(
+              f"{k} {v:.4f} ms ({100 * (v - order_ms['K4']) / order_ms['K4']:+.2f}% vs K4)"
+              for k, v in order_ms.items()))
+    tabs = ck.fleet_kernel_tables(prod)
+    nd = fleet.D.shape[-1]
+    times["spectrum_chi2_fleet_2d"] = (
+        order_ms["target_major"], None,
+        cuda_ms(lambda: s6.spectrum_chi2_fleet_2d_reference(Wc, avc, prod), reps=5))
+    bounds["spectrum_chi2_fleet_2d"] = bound(
+        nbytes(Wc, avc, *(tabs[k] for k in ("D", "kd", "data", "inv_err", "VpinvT", "VT", "scal",
+                                            "ranks"))) + 4 * NTGT * NW_FLEET,
+        spectrum_ops(Wc, avc, nd, PROD["median_iters"]))
+
+    # S1-S3: the scripts' own inputs at full size, every configuration of each
+    graph_ms = lambda fn: 1e3 * graph_timer(dev)(fn)
+
+    def gate_probe(name, label, got_fn, ref_fn, total=None):
+        """The gate, then a tighter check.  ``total`` None: the kernel equals its plain
+        version bit for bit (both sum each row, then add the table term, in one order).
+        Else ``(p, plain table total)`` of a full read: the table total that the output
+        gives back, ``out - row sum of p``, is within TOTAL_RTOL of the plain one, beside
+        the rounding of ``out`` (2^-23 |out|)."""
+        got = got_fn()
+        torch.cuda.synchronize()
+        ref = ref_fn()
+        outside, rel, err = compare(got, ref)
+        fin = bool(torch.isfinite(got).all())
+        errs[name] = max(errs.get(name, 0.0), err)
+        n = got.shape[0]
+        if total is None:
+            same = int((bits(got) == bits(ref)).sum())
+            tight, ok = f"{same} of {n} bit-identical to the plain version", same == n
+        else:
+            p, want = total[0], total[1].double()
+            back = got.double() - s1.row_sum_reference(p).double()
+            slack = TOTAL_RTOL * want.abs() + 2.0 ** -23 * got.double().abs()
+            worst = float(((back - want).abs() / slack).max())
+            tight = (f"table total out - row sum: max rel err "
+                     f"{float((back - want).abs().max() / want.abs()):.3e} against the plain "
+                     f"{float(want):.7e}, {worst:.3f} of the slack (rtol {TOTAL_RTOL:g} + "
+                     "the rounding of out)")
+            ok = worst <= 1.0
+        print(f"[{name} {label}] {n} walkers: {outside} outside tolerance, max rel err "
+              f"{rel:.3e}, max abs err {err:.3e}, all finite {fin}; {tight}")
+        require(outside == 0 and fin, f"{name} {label}: {outside} walkers outside tolerance, "
+                f"all finite {fin}")
+        require(ok, f"{name} {label}: {tight}")
+
+    for nd1, block, ntab in ([(d, s1.BLOCK, k) for d in s1.ND_SWEEP for k in s1.NTAB_SWEEP]
+                             + [(s1.ND_SWEEP[1], b, 6) for b in s1.BLOCK_SWEEP]):
+        p, tables = s1.to_device(dev, *s1.trivial_arrays(nd1, ntab, s1.NW))
+        gate_probe("trivial_probe", f"nd={nd1} ntab={ntab} block={block}",
+                   lambda: s1.trivial_probe(p, tables, block),
+                   lambda: s1.trivial_probe_reference(p, tables))
+    p, _ = s1.to_device(dev, *s1.trivial_arrays(s1.ND_SWEEP[1], 0, s1.NW))
+    times["trivial_probe"] = (graph_ms(lambda: s1.trivial_probe(p, [])),
+                              cuda_ms(lambda: s1.trivial_probe(p, [])),
+                              graph_ms(lambda: s1.trivial_probe_reference(p, [])))
+    library["trivial_probe"] = graph_ms(lambda: torch.sum(p, 1))
+    bounds["trivial_probe"] = bound(s1.trivial_bytes(s1.NW, 0), 8 * s1.NW)
+
+    for variant in s2.VARIANTS:
+        p, tables, scal, body = s2.bisect_inputs(dev, variant, s2.NW, s2.ND)
+        gate_probe("bisect_probe", variant, lambda: s2.bisect_probe(p, tables, scal, body),
+                   lambda: s2.bisect_probe_reference(p, tables, scal, body))
+    times["bisect_probe"] = (graph_ms(lambda: s2.bisect_probe(p, tables, scal, body)),
+                             cuda_ms(lambda: s2.bisect_probe(p, tables, scal, body)),
+                             graph_ms(lambda: s2.bisect_probe_reference(p, tables, scal, body)))
+    bounds["bisect_probe"] = bound(s2.bisect_bytes(s2.NW, p.shape[1]),
+                                   s2.bisect_ops(s2.NW, body))
+
+    runs = [(v, shapes, read, s3.BLOCK) for v, (shapes, read) in s3.variants(s3.ND).items()]
+    for variant, shapes, read, block in runs + [("realmix", s3.realmix(s3.ND), "full", 1)]:
+        p, tables = s1.to_device(dev, *s3.bisect2_arrays(shapes, s3.NW))
+        gate_probe("bisect2_probe", f"{variant} block={block}",
+                   lambda: s3.bisect2_probe(p, tables, read, block),
+                   lambda: s3.bisect2_probe_reference(p, tables, read),
+                   None if read == "peek" else (p, s3.table_total_reference(tables, read)))
+    # the last run: realmix at one walker a block, K1's block count
+    times["bisect2_probe"] = (graph_ms(lambda: s3.bisect2_probe(p, tables, "full", 1)),
+                              cuda_ms(lambda: s3.bisect2_probe(p, tables, "full", 1)),
+                              graph_ms(lambda: s3.bisect2_probe_reference(p, tables, "full")))
+    nfloat = s3.table_floats(s3.realmix(s3.ND))
+    bounds["bisect2_probe"] = bound(s3.bisect2_bytes(s3.NW, s3.realmix(s3.ND), "full"),
+                                    nfloat + 9 * s3.NW)
+    labels = {"spectrum_chi2_fleet_2d": f"target_major, {NTGT} x {NW_FLEET} production dials",
+              "trivial_probe": "ntab=0, 256 walkers a block",
+              "bisect_probe": "all, 256 walkers a block",
+              "bisect2_probe": "realmix, one walker a block"}
+    for name, (ms, eager, plain_ms) in times.items():
+        print(f"[time {name}] {labels[name]}: kernel {ms:.5f} ms"
+              + (" (CUDA graph, per launch)" if eager is not None else "")
+              + (f", eager {eager:.5f} ms" if eager is not None else "")
+              + f", plain {plain_ms:.5f} ms, bound {bounds[name][0]:.6f} ms ({bounds[name][1]})"
+              + (f", library (torch.sum) {library[name]:.5f} ms" if name in library else ""))
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
+
+
+def probes_phase(dev):
+    """The checks, then the four scripts' ``main()`` at full size: their main path, with
+    its launch counts.  The graph replays pass no wrapper: each ``main`` prints and
+    returns them, and the kernel report gives them as ``graph_replays``."""
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.scripts import dma_probe as s1
+    from mcmc_spec_tpu_torch.scripts import dma_probe_bisect as s2
+    from mcmc_spec_tpu_torch.scripts import dma_probe_bisect2 as s3
+    from mcmc_spec_tpu_torch.scripts import try_fleet_grid_order as s6
+
+    t0 = time.perf_counter()
+    res = probes_checks(dev)
+    print(f"[probes] checks in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    mains = {}
+    for name, main in (("try_fleet_grid_order", s6.main), ("dma_probe", s1.main),
+                       ("dma_probe_bisect", s2.main), ("dma_probe_bisect2", s3.main)):
+        t1 = time.perf_counter()
+        print(f"[probes] python -m mcmc_spec_tpu_torch.scripts.{name}", flush=True)
+        mains[name] = main(device=dev)
+        print(f"[probes] {name}: {time.perf_counter() - t1:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    print(f"[probes] the four scripts in {time.perf_counter() - t0:.1f} s; launches {launches}")
+    for name in ("spectrum_chi2_fleet_2d", "trivial_probe", "bisect_probe", "bisect2_probe"):
+        require(launches[name] > 0, f"{name} was not launched by the scripts")
+    return {**res, "launches": launches, "mains": mains}
+
+
 def main() -> int:
     dev, smi = device_phase()
     build_phase()
@@ -1243,6 +1435,11 @@ def main() -> int:
     t0 = time.perf_counter()
     rres = redesign_phase(dev, tgt, truth)
     redesign_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pres = probes_phase(dev)
+    probes_s = time.perf_counter() - t0
+    print(f"[probes] phase 10 in {probes_s:.1f} s (budget {PROBES_BUDGET_S} s"
+          + (")" if probes_s <= PROBES_BUDGET_S else ", OVER BUDGET)"))
     lr = lres["rates"]
     print(f"[summary] {smi}: stage-2 {rates['production']:.1f} evals/s (production dials), "
           f"{rates['exact']:.1f} evals/s (exact dials); stage-1 wall {stage1_s:.2f} s; fleet "
@@ -1250,7 +1447,8 @@ def main() -> int:
           f"fused (K5) {fres['fused']['rate']:.1f} evals/s; large nd phase {largend_s:.1f} s: "
           + ", ".join(f"nd={nd} {label} {lr[(nd, label)]['rate']:.1f} evals/s"
                       for nd, label in lr)
-          + f"; experiments phase {experiments_s:.1f} s; redesign phase {redesign_s:.1f} s")
+          + f"; experiments phase {experiments_s:.1f} s; redesign phase {redesign_s:.1f} s; "
+          f"probes phase {probes_s:.1f} s")
     k1_ms_prod, k1_plain_prod = kres["times"][("k1", "production")]
     k3_ms, k3_plain = kres["times"][("k3", NWALK_BENCH // 2)]
     rows = [
@@ -1292,9 +1490,25 @@ def main() -> int:
                              ("spectrum_overlap", "spectrum_overlap.cu", "try_mxu_overlap.py:106")):
         rows.append((name, src, f"scripts/{where}", rres["launches"][name], rres["errs"][name],
                      *rres["times"][name], rres["bounds"][name], rres["library"].get(name)))
+    # the fleet grid order and the launch-cost probes, scripts/; the probes' kernel time is
+    # per launch in a CUDA graph (the eager times are printed above)
+    for name, src, where in (("spectrum_chi2_fleet_2d", "fleet_grid_order.cu",
+                              "try_fleet_grid_order.py:59"),
+                             ("trivial_probe", "launch_probe.cu", "dma_probe.py:39"),
+                             ("bisect_probe", "launch_probe.cu", "dma_probe_bisect.py:57"),
+                             ("bisect2_probe", "launch_probe.cu", "dma_probe_bisect2.py:63")):
+        ms, _, plain_ms = pres["times"][name]
+        rows.append((name, src, f"scripts/{where}", pres["launches"][name], pres["errs"][name],
+                     ms, plain_ms, pres["bounds"][name], pres["library"].get(name)))
+    # `launches` counts where a wrapper launches; the probes' mains also replay CUDA graphs
+    # of those launches, which no wrapper sees: `graph_replays` counts them
+    replays = {name: pres["mains"][script]["replayed"]
+               for name, script in (("trivial_probe", "dma_probe"),
+                                    ("bisect_probe", "dma_probe_bisect"),
+                                    ("bisect2_probe", "dma_probe_bisect2"))}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"mcmc_spec_tpu_torch/csrc/{src}",
-         "replaces": where, "launches": n,
+         "replaces": where, "launches": n, "graph_replays": replays.get(name, 0),
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
          "library_ms": lib}
         for name, src, where, n, err, ms, plain_ms, b, lib in rows]}))

@@ -80,11 +80,14 @@ def run_anneal(tgt: PackedTarget, p0: torch.Tensor, generator: torch.Generator,
     """Anneal all walkers; returns (params [nw, ndim], chi [nw], trace or None).
 
     ``record_thin > 0`` also returns every ``record_thin``-th (params, chi)
-    snapshot, stacked, for the optimizer-diagnostic plots.
+    snapshot, stacked, for the optimizer-diagnostic plots.  As in JAX, the
+    iterations then run in whole chunks of ``record_thin``: ``50*steps //
+    record_thin`` chunks, and with none the start walkers and an empty trace.
     """
     p0 = torch.as_tensor(p0)
     nw, ndim = p0.shape
     max_iters = 50 * steps
+    n_iters = max_iters // record_thin * record_thin if record_thin else max_iters
     sig_coarse = _step_sigmas(tgt, p0, fine=False)
     sig_fine = _step_sigmas(tgt, p0, fine=True)
     n = tgt.nspec
@@ -97,7 +100,7 @@ def run_anneal(tgt: PackedTarget, p0: torch.Tensor, generator: torch.Generator,
     cnt = torch.zeros(nw, dtype=torch.int32, device=p0.device)
     total_n = torch.zeros(nw, dtype=torch.int32, device=p0.device)
     trace_p, trace_c = [], []
-    for it in range(max_iters):
+    for it in range(n_iters):
         active = (cnt < steps) & (total_n < max_iters)
         fine = cnt > steps // 2
         sig = torch.where(fine[:, None], sig_fine, sig_coarse)
@@ -117,8 +120,11 @@ def run_anneal(tgt: PackedTarget, p0: torch.Tensor, generator: torch.Generator,
         if record_thin and (it + 1) % record_thin == 0:
             trace_p.append(params)
             trace_c.append(chi)
-    trace = (torch.stack(trace_p), torch.stack(trace_c)) if trace_p else None
-    return params, chi, trace
+    if not record_thin:
+        return params, chi, None
+    if not trace_p:
+        return params, chi, (p0.new_empty((0, nw, ndim)), chi.new_empty((0, nw)))
+    return params, chi, (torch.stack(trace_p), torch.stack(trace_c))
 
 
 def init_walkers(tgt: PackedTarget, nwalk: int, plx: float, plx_err: float,

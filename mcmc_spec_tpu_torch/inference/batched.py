@@ -9,7 +9,8 @@ the sort-based exact median match, continuum renorm and chi^2.
 Dispatch, decided by device, dtype and target shape only:
 
 * a CUDA float32 target eligible for fusion (``_fusable``) evaluates the
-  whole log-posterior in the fused kernel (``ops.cuda_kernels``, K1);
+  whole log-posterior in the fused kernel (``ops.cuda_kernels``, K1), unless
+  ``MCMC_SPEC_FUSED_EVAL`` is ``0``/``off``/``xla``, read per call as in JAX;
 * otherwise a CUDA float32 spectrum term runs the spectrum-chi^2 kernel (K3)
   up to ``LARGE_ND`` data points, and the segmented large-nd lane
   (``ops.spec_segmented``, K6-K9) above;
@@ -31,6 +32,7 @@ from mcmc_spec_tpu_torch.models.mist import LSUN, RSUN, SIGMA_SB
 from mcmc_spec_tpu_torch.ops import cuda_kernels, spec_segmented
 from mcmc_spec_tpu_torch.ops.interp import tent_weights
 from mcmc_spec_tpu_torch.ops.spec_segmented import LARGE_ND
+from mcmc_spec_tpu_torch.utils import flags
 
 
 def _on_cuda_f32(p: torch.Tensor) -> bool:
@@ -273,7 +275,8 @@ def _fusable(tgt: PackedTarget) -> bool:
 def log_posterior_batch(p, tgt: PackedTarget, chi_spec=None):
     """Batched log-posterior: the sampler hot path (see module docstring)."""
     p, tgt = common_dtype(p, tgt)
-    if chi_spec is None and _fusable(tgt) and _on_cuda_f32(p):
+    if (chi_spec is None and _fusable(tgt) and _on_cuda_f32(p)
+            and not flags.fused_eval_off()):
         return cuda_kernels.log_posterior_fused(p, tgt)
     lp = log_prior_batch(p, tgt)
     ll = log_likelihood_batch(p, tgt, chi_spec=chi_spec)

@@ -58,7 +58,10 @@ LAUNCHES = {"log_posterior_fused": 0, "spectrum_chi2": 0, "spectrum_chi2_fleet":
             "fma_chains": 0, "median_only": 0, "spectrum_recip": 0, "posterior_sections": 0,
             # the K1 redesign experiments (mcmc_spec_tpu_torch.scripts)
             "posterior_transposed": 0, "median_adaptive": 0, "median_packed": 0,
-            "spectrum_overlap": 0}
+            "spectrum_overlap": 0,
+            # the fleet grid order and the launch-cost probes (mcmc_spec_tpu_torch.scripts)
+            "spectrum_chi2_fleet_2d": 0, "trivial_probe": 0, "bisect_probe": 0,
+            "bisect2_probe": 0}
 # the dynamic shared memory a Hopper block may opt into (227 KB), less a margin
 # for the kernels' static shared memory: the one-block-per-walker kernels hold
 # a model row of nd floats and their blend weights in it
@@ -274,6 +277,12 @@ _SIGNATURES = {
     "median_adaptive_launch": [_P] * 3 + [_I] * 2 + [_P],
     "median_packed_launch": [_P] * 2 + [_I] * 2 + [_P],
     "spectrum_overlap_launch": [_P] * 10 + [_I] * 6 + [_P],
+    # the fleet grid order and the launch-cost probes (mcmc_spec_tpu_torch.scripts); a
+    # probe's tables go as a C array of pointers and one of sizes
+    "fleet_grid_order_launch": [_P] * 11 + [_I] * 7 + [_P],
+    "trivial_probe_launch": [_P] * 3 + [_I] + [_P] + [_I] * 2 + [_P],
+    "bisect_probe_launch": [_P, _I, _P, _P, _I, _F, _F, _I, _I, _P, _I, _I, _P],
+    "bisect2_probe_launch": [_P] * 3 + [_I] * 2 + [_P] + [_I] * 2 + [_P],
 }
 
 

@@ -58,3 +58,49 @@ def timer(dev: torch.device):
         return best
 
     return time_fn
+
+
+GRAPH_LAUNCHES = 50  # the JAX probes' lax.scan of 50 calls
+
+
+def graph_timer(dev, n=GRAPH_LAUNCHES):
+    """``time_fn(fn, reps=5)``: seconds per call of ``fn()`` with the host out of the way.
+
+    On the card ``fn`` is captured ``n`` times into one CUDA graph, after three
+    warm-up calls on a side stream, and the graph is replayed ``reps`` times, each
+    replay timed with CUDA events; the least replay over ``n``.  ``fn`` must launch on
+    the current stream and must not synchronise.  A wrapper counts its launches at
+    capture (``n``) and in the warm-up (3); the ``(reps + 1) * n`` launches of the
+    replays pass no wrapper, and ``time_fn.replayed`` sums them.  On the
+    CPU the host clock over ``n`` calls of the plain version, as ``timer``.
+    """
+
+    def time_fn(fn, reps=5):
+        if dev.type != "cuda":
+            return timer(dev)(fn, n=n, warmup=1, reps=reps)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        best = math.inf
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) * 1e-3 / n)
+        time_fn.replayed += (reps + 1) * n
+        return best
+
+    time_fn.replayed = 0
+    return time_fn

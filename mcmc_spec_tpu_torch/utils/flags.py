@@ -3,8 +3,8 @@
 
 Each dial is resolved ONCE, when a target is packed (``inference.target``),
 and stamped on the ``PackedTarget``; the kernels never read the environment.
-``MCMC_SPEC_FUSED_EVAL`` is read per fleet evaluation, as in JAX.  The env
-names and defaults are the JAX package's.
+``MCMC_SPEC_FUSED_EVAL`` is read per evaluation, single-target and fleet, as
+in JAX.  The env names and defaults are the JAX package's.
 """
 from __future__ import annotations
 
@@ -86,3 +86,9 @@ def fused_eval_forced() -> bool:
     posterior (K5) is opt-in, the composition with the fleet spectrum kernel
     (K4) is the default."""
     return _fused_eval_mode() == "force"
+
+
+def fused_eval_off() -> bool:
+    """True when fusion is switched off: a fusable single target then takes the
+    spectrum kernel (K3) and the composition instead of the fused posterior (K1)."""
+    return _fused_eval_mode() == "off"

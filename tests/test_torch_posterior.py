@@ -277,6 +277,33 @@ def test_cuda_f32_dispatch(monkeypatch, f32_target):
     assert seg.calls[1][1]["renorm"] is False and seg.calls[1][1]["iters"] == 31
 
 
+@pytest.mark.parametrize("mode,fused", [("auto", True), ("force", True), ("1", True),
+                                        ("off", False), ("0", False), ("xla", False)])
+def test_fused_eval_flag_single_target(monkeypatch, f32_target, mode, fused):
+    """MCMC_SPEC_FUSED_EVAL, read per call as in JAX: ``off`` (``0``, ``xla``) sends a
+    fusable CUDA float32 target down the spectrum kernel K3 and the composition;
+    ``auto`` and ``force`` (``1``) take the fused posterior K1."""
+    monkeypatch.setattr(batched, "_on_cuda_f32", lambda p: p.dtype == torch.float32)
+    k1 = _Recorder(lambda p, tgt: torch.zeros(p.shape[0]))
+    k3 = _Recorder(lambda Wcomb, *rest: torch.zeros(Wcomb.shape[0]))
+    monkeypatch.setattr(ck, "log_posterior_fused", k1)
+    monkeypatch.setattr(ck, "spectrum_chi2", k3)
+    monkeypatch.setenv("MCMC_SPEC_FUSED_EVAL", mode)
+    prod = dataclasses.replace(f32_target, median_iters=14, recip_newton=2, matmul_passes=3)
+    assert batched._fusable(prod)
+    P = torch.from_numpy(_walkers("binary", f32_target).astype(np.float32))
+    out = batched.log_posterior_batch(P, prod)
+    assert out.shape == (P.shape[0],)
+    if fused:
+        assert len(k1.calls) == 1 and not k3.calls
+    else:
+        assert not k1.calls and len(k3.calls) == 1
+        assert k3.calls[0][1]["renorm"] is True and k3.calls[0][1]["iters"] == 14
+        # the composition around K3: its chi^2 of 0 leaves the band terms and priors
+        want = batched.log_posterior_batch(P, prod, chi_spec=torch.zeros(P.shape[0]))
+        np.testing.assert_array_equal(out.numpy(), want.numpy())
+
+
 def test_wrappers_refuse_other_devices(f32_target):
     P = torch.empty((4, 6), device="meta")
     with pytest.raises(ValueError, match="not supported"):

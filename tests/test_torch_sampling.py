@@ -58,6 +58,21 @@ class _JaxChunk:
         return _T(z), _T(idx).long(), _T(log_u)
 
 
+class _JaxHalf:
+    """stretch._draw_half from a JAX key: ``key, kz, kp, ka = split(key, 4)`` per
+    half-step, as JAX's odd-ensemble path (``_half_update``) splits it."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def __call__(self, gen, m, n_comp, a, dtype, device):
+        self.key, kz, kp, ka = jax.random.split(self.key, 4)
+        z = jax_stretch._stretch_z(kz, (m,), a).astype(jnp.float64)
+        idx = jax.random.randint(kp, (m,), 0, n_comp)
+        log_u = jnp.log(jax.random.uniform(ka, (m,))).astype(jnp.float64)
+        return _T(z), _T(idx).long(), _T(log_u)
+
+
 @pytest.fixture(scope="module")
 def targets():
     jt, truth = jax_build_bench_target(jnp.float64, nd=256, grid_step=8.0)
@@ -87,6 +102,42 @@ def test_anneal_matches_jax(annealed):
     np.testing.assert_allclose(tchi, jchi, rtol=1e-9)
 
 
+@pytest.mark.parametrize("steps,record_thin,n_iters", [(1, 60, 0), (3, 40, 120)])
+def test_anneal_record_thin_matches_jax(monkeypatch, targets, annealed, steps, record_thin,
+                                        n_iters):
+    """With ``record_thin`` both packages run whole chunks only, ``50*steps //
+    record_thin * record_thin`` iterations: none at (1, 60), where the start walkers
+    come back with an empty trace, and 120 (not 150) at (3, 40)."""
+    jt, tt, _ = targets
+    p0 = annealed[4]
+    key = jax.random.PRNGKey(21)
+    jp, jchi, (jtp, jtc) = jax_anneal.run_anneal(jt, jnp.asarray(p0), key, steps=steps,
+                                                 record_thin=record_thin)
+    noise = _JaxNoise(key)
+    monkeypatch.setattr(anneal, "_draw_noise", noise)
+    tp, tchi, (ttp, ttc) = anneal.run_anneal(tt, torch.from_numpy(p0), torch.Generator(),
+                                             steps=steps, record_thin=record_thin)
+    n_chunks = n_iters // record_thin
+    assert ttp.shape == (n_chunks, 16, tt.ndim) == np.shape(jtp)
+    assert ttc.shape == (n_chunks, 16) == np.shape(jtc)
+    # the port drew one noise batch per iteration it ran
+    want_key = key
+    for _ in range(n_iters):
+        want_key, _ = jax.random.split(want_key)
+    np.testing.assert_array_equal(np.asarray(noise.key), np.asarray(want_key))
+    if n_iters == 0:
+        np.testing.assert_array_equal(tp.numpy(), p0)
+        np.testing.assert_array_equal(np.asarray(jp), p0)
+        np.testing.assert_allclose(tchi.numpy(), batched.optimizer_chi2_batch(
+            torch.from_numpy(p0), tt).numpy(), rtol=0)
+    else:
+        assert not np.allclose(tp.numpy(), p0)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-9)
+    np.testing.assert_allclose(tchi.numpy(), np.asarray(jchi), rtol=1e-9)
+    np.testing.assert_allclose(ttp.numpy(), np.asarray(jtp), rtol=1e-9)
+    np.testing.assert_allclose(ttc.numpy(), np.asarray(jtc), rtol=1e-9)
+
+
 def test_run_ensemble_matches_jax(monkeypatch, targets, annealed):
     jt, tt, _ = targets
     start = annealed[0]
@@ -100,6 +151,29 @@ def test_run_ensemble_matches_jax(monkeypatch, targets, annealed):
     ts = stretch.init_ensemble(torch.from_numpy(start), logp_t, torch.Generator())
     ts, tchain, tlps = stretch.run_ensemble(ts, logp_t, n_steps=4, thin=2)
 
+    assert int(ts.n_accept) == int(js.n_accept) > 0
+    np.testing.assert_allclose(ts.coords.numpy(), np.asarray(js.coords), rtol=1e-9)
+    np.testing.assert_allclose(ts.log_prob.numpy(), np.asarray(js.log_prob), rtol=1e-9)
+    np.testing.assert_allclose(tchain.numpy(), np.asarray(jchain), rtol=1e-9)
+    np.testing.assert_allclose(tlps.numpy(), np.asarray(jlps), rtol=1e-9)
+
+
+def test_run_ensemble_odd_walkers_matches_jax(monkeypatch, targets, annealed):
+    """An odd ensemble (15 walkers: halves of 7 and 8) steps as JAX's does."""
+    jt, tt, _ = targets
+    start = annealed[0][:15]
+    key = jax.random.PRNGKey(13)
+    logp_j = lambda b: jb.log_posterior_batch(b, jt)
+    js = jax_stretch.init_ensemble(jnp.asarray(start), logp_j, key)
+    js, jchain, jlps = jax_stretch.run_ensemble(js, logp_j, n_steps=4, thin=2)
+
+    monkeypatch.setattr(stretch, "_draw_half", _JaxHalf(key))
+    monkeypatch.setattr(stretch, "_draw_chunk", None)  # the even path draws nothing here
+    logp_t = lambda b: batched.log_posterior_batch(b, tt)
+    ts = stretch.init_ensemble(torch.from_numpy(start), logp_t, torch.Generator())
+    ts, tchain, tlps = stretch.run_ensemble(ts, logp_t, n_steps=4, thin=2)
+
+    assert tchain.shape == (2, 15, tt.ndim)
     assert int(ts.n_accept) == int(js.n_accept) > 0
     np.testing.assert_allclose(ts.coords.numpy(), np.asarray(js.coords), rtol=1e-9)
     np.testing.assert_allclose(ts.log_prob.numpy(), np.asarray(js.log_prob), rtol=1e-9)
