@@ -9,8 +9,11 @@ Phases, each of which exits non-zero on failure:
 
 1. device: a CUDA card is required; prints its name and power limit;
 2. build: compiles the kernels of ``mcmc_spec_tpu_torch/csrc`` with nvcc;
-3. kernels vs plain: the fused-posterior (K1) and spectrum-chi^2 (K3) kernels
-   against their plain PyTorch versions on the card, with CUDA-event times;
+3. kernels vs plain: the fused-posterior (K1) and spectrum-chi^2 (K3) kernels,
+   one warp per walker, with their walkers per block and ptxas lines (no
+   barrier), against their plain PyTorch versions on the card at both dial
+   sets: 16,384 + 5 walkers on the bench target, three small targets, and
+   nd = 1,791 and 4,096 with a ragged last block; then CUDA-event times;
 4. the two-stage fit on the koi2298-scale bench target: annealer (K3) on
    3,072 walkers, top third seeds the stretch sampler (K1), launch counts;
 5. throughput: the bench workload, 32,768 walkers, 128 timed steps, at the
@@ -34,9 +37,9 @@ Phases, each of which exits non-zero on failure:
 8. experiments: the cost-attribution kernels of ``mcmc_spec_tpu_torch.scripts``
    against their plain versions on the card (S10 multiply chains and S11 row
    median bit for bit, S11 also against ``torch.kthvalue``; S4 spectrum with
-   the reciprocal dial at every dial, and bit for bit against K3 at recip 0;
+   the reciprocal dial at every dial, and against K3 at recip 0 in the gate;
    S12 fused-posterior sections, every variant on 16,384 + 5 walkers at both
-   dial sets, and ``full`` bit for bit against K1), then the three
+   dial sets, and ``full`` against K1 in the gate), then the three
    experiments' ``main()`` at full size (32,768 walkers, nd = 1792) with
    launch counts;
 9. the K1 redesign experiments against their plain versions on the card: S8
@@ -151,6 +154,31 @@ def cuda_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel, reps=20):
+    """Mean device milliseconds of one launch of the kernels whose name holds ``kernel``
+    over ``reps`` calls of ``fn()`` under ``torch.profiler``: the kernel alone, without
+    the wrapper's host time that CUDA events around the call also see; None where the
+    profiler reports no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and kernel in e.key]
+    n = sum(e.count for e in ev)
+    return sum(dev_us(e) for e in ev) * 1e-3 / n if n else None
+
+
+def fmt_ms(ms):
+    return "not measured (the profiler reported no device time)" if ms is None else f"{ms:.4f} ms"
 
 
 def compare(got, ref, rtol=RTOL):
@@ -271,15 +299,62 @@ def check_k1(name, tgt, P, max_outside):
     return err
 
 
+def warp_kernels_report(tgt):
+    """K1 and K3 run one warp per walker: print each kernel's walkers per block at the
+    bench shape and at LARGE_ND, and its ptxas line, which must show no barrier."""
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
+    from mcmc_spec_tpu_torch.runtime import compare_builds, cuda_build
+
+    lines = compare_builds.ptxas_lines(cuda_build.library_path().with_suffix(".log").read_text())
+    nT, nG, nd = tgt.D.shape
+    for name, kernel, weight_rows in (("K1", "log_posterior_fused_kernel", 1 + tgt.nspec),
+                                      ("K3", "spectrum_chi2_kernel", 0)):
+        line = next(v for k, v in lines.items() if kernel in k)
+        wpb = {n: ck.walkers_per_block(n, nT * nG, weight_rows) for n in (nd, seg.LARGE_ND)}
+        print(f"[{name} one warp per walker] walkers per block: "
+              + ", ".join(f"{w} at nd={n} ({w * ck.warp_smem_bytes(n, nT * nG, weight_rows)} "
+                          "bytes of shared memory)" for n, w in wpb.items())
+              + f"; ptxas: {line}")
+        require("used 0 barriers" in line, f"{name}: ptxas reports a barrier: {line}")
+
+
+def check_k3(name, tgt, P, max_outside):
+    """K3 against its plain version on the blend weights of walkers ``P``, renorm on and
+    off, at ``tgt``'s dials; returns the max abs error."""
+    from mcmc_spec_tpu_torch.inference.batched import _forward_small
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+
+    Wcomb = _forward_small(P, tgt)[4]
+    nT, nG, nd = tgt.D.shape
+    args = (Wcomb, P[:, tgt.nspec].contiguous(), tgt.D.reshape(nT * nG, nd), tgt.ext_k_data,
+            tgt.data_flux, tgt.data_err, tgt.V, tgt.Vpinv, tgt.med_data)
+    kw = dial_kwargs(dict(median_iters=tgt.median_iters, matmul_passes=tgt.matmul_passes,
+                          recip_newton=tgt.recip_newton))
+    err_max = 0.0
+    for renorm in (True, False):
+        got = ck.spectrum_chi2(*args, renorm=renorm, **kw)
+        torch.cuda.synchronize()
+        outside, rel, err = compare(got, ck.spectrum_chi2_reference(*args, renorm=renorm, **kw))
+        err_max = max(err_max, err)
+        print(f"[K3 {name} renorm={renorm}] {P.shape[0]} walkers: {outside} outside tolerance "
+              f"(allowed {max_outside}), max rel err {rel:.3e}, max abs err {err:.3e}")
+        require(outside <= max_outside, f"K3 {name} renorm={renorm}: {outside} walkers outside "
+                "tolerance")
+    return err_max
+
+
 def kernels_phase(dev):
     from mcmc_spec_tpu_torch.bench_target import build_bench_target, init_walker_batch
     from mcmc_spec_tpu_torch.inference.batched import _forward_small
     from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.ops.spec_segmented import LARGE_ND
 
     t0 = time.perf_counter()
     tgt, truth = build_bench_target(torch.float32, device=dev)
     print(f"[kernels] bench target packed in {time.perf_counter() - t0:.1f} s: "
           f"D {tuple(tgt.D.shape)}, nc {tgt.n_contrast}, npf {tgt.n_phot}, ndim {tgt.ndim}")
+    warp_kernels_report(tgt)
     exact = dataclasses.replace(tgt, **EXACT)
     prod = dataclasses.replace(tgt, **PROD)
     nhalf = NWALK_BENCH // 2
@@ -289,6 +364,8 @@ def kernels_phase(dev):
     err_k1 = check_k1("exact dials (31, 6, 0)", exact, P, 0)
     check_k1("production dials (14, 3, 2)", prod, P,
              int(PROD_MAX_OUTSIDE_FRAC * nhalf))
+    err_k3 = check_k3("exact dials (31, 6, 0)", exact, P, 0)
+    check_k3("production dials (14, 3, 2)", prod, P, int(PROD_MAX_OUTSIDE_FRAC * nhalf))
 
     small2, truth2 = build_bench_target(torch.float32, device=dev, nd=400, grid_step=8.0)
     # odd nd: the exact median's odd-row branch
@@ -298,26 +375,28 @@ def kernels_phase(dev):
                         ("nospec", dataclasses.replace(small2, spectrum_weight=0.0, **EXACT), truth2)):
         Ps = torch.cat([init_walker_batch(t, tr, 1024, seed=2), edge_walkers(tr, t)])
         check_k1(name, t, Ps, 0)
+    # the odd whole-row median of the bench grid, and LARGE_ND (the largest row the
+    # dispatch gives K1 and K3, the fewest walkers a block); at 8 walkers a block,
+    # 1,024 + 5 walkers leave a ragged last block of 5
+    for nd in (ND_EXP_ODD, LARGE_ND):
+        t, tr = build_bench_target(torch.float32, device=dev, nd=nd)
+        Pn = torch.cat([init_walker_batch(t, tr, 1024, seed=6), edge_walkers(tr, t)])
+        for label, dials, allowed in (("exact dials", EXACT, 0),
+                                      ("production dials", PROD,
+                                       int(PROD_MAX_OUTSIDE_FRAC * 1024))):
+            td = dataclasses.replace(t, **dials)
+            e1 = check_k1(f"nd={nd} {label}", td, Pn, allowed)
+            e3 = check_k3(f"nd={nd} {label}", td, Pn, allowed)
+            if dials is EXACT:
+                err_k1, err_k3 = max(err_k1, e1), max(err_k3, e3)
 
-    # K3 on the same walkers' blend weights
+    # times at the bench shapes: one stage-2 half batch; K3 in its stage-1 mode
+    # (the bounds are computed for the timed calls' inputs)
     _, _, _, _, Wcomb = _forward_small(cloud, exact)
     av = cloud[:, exact.nspec].contiguous()
     nT, nG, nd = exact.D.shape
     args = (Wcomb, av, exact.D.reshape(nT * nG, nd), exact.ext_k_data, exact.data_flux,
             exact.data_err, exact.V, exact.Vpinv, exact.med_data)
-    err_k3 = 0.0
-    for renorm in (True, False):
-        got = ck.spectrum_chi2(*args, iters=31, mm_passes=6, recip=0, renorm=renorm)
-        torch.cuda.synchronize()
-        ref = ck.spectrum_chi2_reference(*args, iters=31, mm_passes=6, recip=0, renorm=renorm)
-        outside, rel, err = compare(got, ref)
-        err_k3 = max(err_k3, err)
-        print(f"[K3 renorm={renorm}] {nhalf} walkers: {outside} outside tolerance, "
-              f"max rel err {rel:.3e}, max abs err {err:.3e}")
-        require(outside == 0, f"K3 renorm={renorm}: {outside} walkers outside tolerance")
-
-    # times at the bench shapes: one stage-2 half batch; K3 in its stage-1 mode
-    # (the bounds are computed for the timed calls' inputs)
     k1_bytes = nbytes(cloud, *ck.kernel_tables(prod).values()) + 4 * nhalf
     k1_ops = spectrum_ops(Wcomb, av, nd, PROD["median_iters"]) + posterior_scalar_ops(nhalf, prod)
     k3_bytes = nbytes(Wcomb, av, *args[2:8]) + 4 * nhalf
@@ -329,18 +408,23 @@ def kernels_phase(dev):
           f"({bounds['k3'][1]}: {k3_ops:.4g} ops, {k3_bytes:.4g} bytes)")
     times = {}
     for label, t in (("production", prod), ("exact", exact)):
-        k = cuda_ms(lambda: ck.log_posterior_fused(cloud, t))
-        r = cuda_ms(lambda: ck.log_posterior_fused_reference(cloud, t))
+        fn = lambda: ck.log_posterior_fused(cloud, t)
+        k, r = cuda_ms(fn), cuda_ms(lambda: ck.log_posterior_fused_reference(cloud, t))
         times[("k1", label)] = (k, r)
-        print(f"[time K1 {label}] {nhalf} walkers: kernel {k:.4f} ms, plain {r:.4f} ms")
+        alone = fmt_ms(device_ms(fn, "log_posterior_fused_kernel"))
+        print(f"[time K1 {label}] {nhalf} walkers: kernel {k:.4f} ms, plain {r:.4f} ms; "
+              f"the kernel alone on the device {alone}")
     for nw in (nhalf, 3072):
         a3 = (Wcomb[:nw].contiguous(), av[:nw].contiguous()) + args[2:]
-        k = cuda_ms(lambda: ck.spectrum_chi2(*a3, iters=31, mm_passes=6, recip=0, renorm=False))
+        fn = lambda: ck.spectrum_chi2(*a3, iters=31, mm_passes=6, recip=0, renorm=False)
+        k = cuda_ms(fn)
         r = cuda_ms(lambda: ck.spectrum_chi2_reference(*a3, iters=31, mm_passes=6, recip=0,
                                                        renorm=False))
         times[("k3", nw)] = (k, r)
+        b = bound(nbytes(*a3[:8]) + 4 * nw, spectrum_ops(a3[0], a3[1], nd, 31, renorm=False))
         print(f"[time K3 renorm=False exact median] {nw} walkers: kernel {k:.4f} ms, "
-              f"plain {r:.4f} ms")
+              f"plain {r:.4f} ms, bound {b[0]:.5f} ms ({b[1]}); the kernel alone on the device "
+              f"{fmt_ms(device_ms(fn, 'spectrum_chi2_kernel'))}")
     return tgt, truth, {"k1_err": err_k1, "k3_err": err_k3, "times": times, "bounds": bounds}
 
 
@@ -833,11 +917,16 @@ def largend_crossover(dev, targets):
         P = init_walker_batch(t, truth, NW_LARGE, seed=5)
         ops = lane_operands(t, P)
         NO = ops[0].shape[1]
-        fits = lambda weight_rows: 4 * (nd + weight_rows * NO) <= ck.ROW_SMEM_BYTES
+        wpb = {}
+        for name, weight_rows in (("K1", 1 + t.nspec), ("K3", 0)):
+            try:
+                wpb[name] = ck.walkers_per_block(nd, NO, weight_rows)
+            except ValueError:  # not one walker's row fits a block
+                wpb[name] = None
         row = {
-            "K1 posterior": cuda_ms(lambda: ck.log_posterior_fused(P, t)) if fits(3) else None,
+            "K1 posterior": cuda_ms(lambda: ck.log_posterior_fused(P, t)) if wpb["K1"] else None,
             "K3 spectrum": (cuda_ms(lambda: ck.spectrum_chi2(*ops[:9], **dial_kwargs(PROD)))
-                            if fits(1) else None),
+                            if wpb["K3"] else None),
             "segmented spectrum": cuda_ms(
                 lambda: seg.spectrum_chi2_segmented(*ops, **dial_kwargs(PROD))),
             "eager spectrum": cuda_ms(lambda: _spec_chi2_xla(ops[0], ops[1], t), reps=5),
@@ -846,7 +935,8 @@ def largend_crossover(dev, targets):
         rows[nd] = row
         print(f"[largend crossover nd={nd}] {NW_LARGE} walkers, production dials, ms: "
               + ", ".join(f"{k} {'does not fit' if v is None else f'{v:.4f}'}"
-                          for k, v in row.items()))
+                          for k, v in row.items())
+              + f"; walkers per block K1 {wpb['K1']}, K3 {wpb['K3']}")
     return rows
 
 
@@ -982,10 +1072,13 @@ def experiments_checks(dev, tgt, truth):
                           medd[0, 0], iters=fr.ITERS, mm_passes=3, recip=0, renorm=True)
     s4 = fr.spectrum_recip(medd, Wc, av, D, kd, data, ie3, Vp, VT, recip=0)
     torch.cuda.synchronize()
+    # S4 keeps the block-per-walker body and K3 runs one warp per walker: the model row
+    # and the median agree bit for bit, the renorm and chi^2 sums to rounding
+    outside, rel, _ = compare(s4[:, 0], k3)
     same = same_bits(s4, k3[:, None])
-    print(f"[S4 recip=0 vs K3, iters={fr.ITERS}, renorm on] {Wc.shape[0]} walkers: {same} "
-          "bit-identical")
-    require(same == Wc.shape[0], f"S4 vs K3: {Wc.shape[0] - same} walkers differ")
+    print(f"[S4 recip=0 vs K3, iters={fr.ITERS}, renorm on] {Wc.shape[0]} walkers: {outside} "
+          f"outside tolerance, max rel diff {rel:.3e} ({same} bit-identical)")
+    require(outside == 0, f"S4 vs K3: {outside} walkers outside tolerance")
     times["spectrum_recip"] = (cuda_ms(lambda: fr.spectrum_recip(*args, recip=0)),
                                cuda_ms(lambda: fr.spectrum_recip_reference(*args, recip=0),
                                        reps=5))
@@ -1009,10 +1102,14 @@ def experiments_checks(dev, tgt, truth):
             line = (f"[S12 {variant} {label}] {P.shape[0]} walkers: {outside} outside tolerance "
                     f"(allowed {allowed}), max rel err {rel:.3e}, max abs err {err:.3e}")
             if variant == "full":
-                same = same_bits(got[:, None], ck.log_posterior_fused(P, t)[:, None])
-                line += f"; {same} bit-identical to K1"
-                require(same == P.shape[0], f"S12 full {label}: {P.shape[0] - same} walkers "
-                        "differ from K1")
+                # S12 keeps the block-per-walker body, K1 runs one warp per walker: they
+                # agree to rounding
+                k1 = ck.log_posterior_fused(P, t)
+                out_k, rel_k, _ = compare(got, k1)
+                same = same_bits(got[:, None], k1[:, None])
+                line += (f"; {out_k} outside tolerance of K1, max rel diff {rel_k:.3e} ({same} "
+                         "bit-identical)")
+                require(out_k == 0, f"S12 full {label}: {out_k} walkers outside tolerance of K1")
             print(line)
             require(outside <= allowed, f"S12 {variant} {label}: {outside} outside tolerance")
     prod = dataclasses.replace(tgt, **PROD)

@@ -1,9 +1,9 @@
-// The per-walker log-posterior body shared by the fused posterior kernels:
-// K1 (log_posterior_fused.cu, one unpadded target) and K5
-// (log_posterior_fleet_fused.cu, a stacked, padded fleet).  Sharing it keeps
-// the two from drifting apart: they differ only in where a walker's tables
-// and per-target scalars come from, and in the spectrum statistics
-// (SpecStat, spectrum_block.cuh).
+// The one-block-per-walker log-posterior body of the fused fleet posterior
+// K5 (log_posterior_fleet_fused.cu, a stacked, padded fleet) and of the
+// experiments S8 and S12; it was also the body of the fused posterior K1
+// (log_posterior_fused.cu, one unpadded target), which now runs one warp per
+// walker over a copy of the scalar part below.  K1 still takes its structs
+// and tent helpers from here.
 //
 // Replaces the body of mcmc_spec_tpu/ops/pallas_kernels.py:_posterior_kernel
 // and _fleet_posterior_kernel (with _tent_w).  The per-walker scalar part

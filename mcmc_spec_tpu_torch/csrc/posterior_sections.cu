@@ -7,7 +7,8 @@
 // (log_posterior_fused.cu) over posterior_eval<kPhot, kPriors, kSpectrum, kW>
 // (posterior_body.cuh), one instantiation per variant of the JAX script, in
 // its order: full, no_phot, no_priors, no_epilogue, no_spectrum, spec_only,
-// empty.  `full` is posterior_eval<> itself, so it equals K1 bit for bit.
+// empty.  `full` is posterior_eval<> itself, K1's first version; K1 now runs
+// one warp per walker and agrees with it to rounding (the sums' order).
 // The scope is the JAX variant's, which hard-codes one branch of the
 // posterior: nspec = 2, a fitted parallax with the distance bounds, no radius
 // prior, a non-zero spectrum weight; the launch refuses any other target.

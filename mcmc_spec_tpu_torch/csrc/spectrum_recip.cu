@@ -11,7 +11,8 @@
 // included as a launch argument (always 1): with renorm a compile-time
 // constant nvcc emitted other code, and 7,219 of 32,768 chi^2 came out an ulp
 // or so from K3's (H100 80GB HBM3).  As it is, at recip = 0 without noexp it
-// equals K3 bit for bit.  What
+// equals K3's first version bit for bit; K3 now runs one warp per walker and
+// agrees with it to rounding (the sums' order).  What
 // bounds it is what bounds K3 (spectrum_block.cuh): the model-row build, then
 // the median's count passes.  The experiment's blend weights are a dense
 // Dirichlet, so the row build reads all NO rows of D per point where

@@ -4,22 +4,28 @@ Four kernels, hand-written in CUDA C++ for ``sm_90a`` (``csrc/``), built by
 ``runtime.cuda_build``:
 
 * ``log_posterior_fused`` (K1, ``csrc/log_posterior_fused.cu``) evaluates the
-  whole batched log-posterior of one unpadded target, one thread block per
-  walker: the stage-2 sampler's evaluation.
+  whole batched log-posterior of one unpadded target, one warp per walker
+  and up to 8 walkers a block: the stage-2 sampler's evaluation.
 * ``spectrum_chi2`` (K3, ``csrc/spectrum_chi2.cu``) evaluates the spectrum
-  block alone, ``renorm`` on or off: the stage-1 annealer's scoring.
+  block alone, ``renorm`` on or off, one warp per walker: the stage-1
+  annealer's scoring.
 * ``spectrum_chi2_fleet`` (K4, ``csrc/spectrum_chi2_fleet.cu``) evaluates the
-  spectrum block of every walker of a stacked, padded fleet in one launch:
-  the fleet's default spectrum term.
+  spectrum block of every walker of a stacked, padded fleet in one launch,
+  one thread block per walker: the fleet's default spectrum term.
 * ``log_posterior_fleet_fused`` (K5, ``csrc/log_posterior_fleet_fused.cu``)
-  is K1 for a stacked, padded fleet: the fleet's opt-in fused evaluation.
+  is K1 for a stacked, padded fleet, one thread block per walker: the
+  fleet's opt-in fused evaluation.
 
-All four share the spectrum-statistics body K2 (``csrc/spectrum_block.cuh``):
-the ``Wcomb @ D`` model row with extinction, the sort-free radix median, the
-degree-2 continuum renorm and the chi^2.  K1 and K3 take the median of the
-whole row and the mean chi^2; K4 and K5 take per-target median ranks and
-``sum * 1/n_true``, so padded points are inert.  K1 and K5 share the
-posterior body (``csrc/posterior_body.cuh``).
+All four compute the spectrum-statistics body K2: the ``Wcomb @ D`` model
+row with extinction, the sort-free radix median, the degree-2 continuum
+renorm and the chi^2.  K1 and K3 run it one warp per walker, over a compact
+list of each walker's non-zero weights (``csrc/spectrum_warp.cuh``); K4 and
+K5 one block per walker (``csrc/spectrum_block.cuh``).  K1 and K3 take the
+median of the whole row and the mean chi^2; K4 and K5 take per-target median
+ranks and ``sum * 1/n_true``, so padded points are inert.  K5 and the
+experiments S8 and S12 share the block-per-walker posterior body
+(``csrc/posterior_body.cuh``).  ``walkers_per_block`` chooses how many
+walkers a block of K1 or K3 holds.
 
 Beside each kernel is its plain PyTorch version (``*_reference``): f32, the
 same pack-time dials, the arithmetic of the Pallas kernel, on the same
@@ -63,14 +69,45 @@ LAUNCHES = {"log_posterior_fused": 0, "spectrum_chi2": 0, "spectrum_chi2_fleet":
             "spectrum_chi2_fleet_2d": 0, "trivial_probe": 0, "bisect_probe": 0,
             "bisect2_probe": 0}
 # the dynamic shared memory a Hopper block may opt into (227 KB), less a margin
-# for the kernels' static shared memory: the one-block-per-walker kernels hold
-# a model row of nd floats and their blend weights in it
+# for the kernels' static shared memory: the kernels hold their walkers' model
+# rows of nd floats and blend weights in it
 ROW_SMEM_BYTES = 232448 - 1024
+# walkers (one warp each) a block of K1 or K3 holds at most: kWalkersMax in
+# csrc/spectrum_warp.cuh
+WALKERS_MAX = 8
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def warp_smem_bytes(nd: int, NO: int, weight_rows: int) -> int:
+    """Dynamic shared memory one walker of K1 or K3 holds, in bytes.
+
+    The model row, ``weight_rows`` rows of NO blend weights (K1: ``1 +
+    nspec``, Wcomb and the scaled components; K3: 0) and the compact list of
+    non-zero weights (NO indices, NO weights), each part padded to 16 bytes:
+    ``warp_smem_floats`` in ``csrc/spectrum_warp.cuh``.
+    """
+    r4 = lambda n: (n + 3) // 4 * 4
+    return 4 * (r4(nd) + r4((weight_rows + 2) * NO))
+
+
+def walkers_per_block(nd: int, NO: int, weight_rows: int) -> int:
+    """The walkers (warps) a block of K1 or K3 holds: the largest count up to
+    ``WALKERS_MAX`` whose shared memory fits ``ROW_SMEM_BYTES``.
+
+    ``weight_rows`` as in ``warp_smem_bytes``.  Raises ``ValueError`` where
+    one walker's row does not fit.
+    """
+    per = warp_smem_bytes(nd, NO, weight_rows)
+    wpb = min(WALKERS_MAX, ROW_SMEM_BYTES // per)
+    if wpb < 1:
+        raise ValueError(
+            f"a walker's row of nd={nd} points and {weight_rows + 2} rows of {NO} weights "
+            f"takes {per} bytes of shared memory, more than the {ROW_SMEM_BYTES} a block has")
+    return wpb
 
 
 # ---------------------------------------------------------------------------
@@ -258,8 +295,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "log_posterior_fused_launch": [_P] * 20 + [_I] * 14 + [_F] * 3 + [_P],
-    "spectrum_chi2_launch": [_P] * 10 + [_I] * 6 + [_P],
+    # K1 and K3 take their walkers per block last, before the stream
+    "log_posterior_fused_launch": [_P] * 20 + [_I] * 14 + [_F] * 3 + [_I] + [_P],
+    "spectrum_chi2_launch": [_P] * 10 + [_I] * 7 + [_P],
     "spectrum_chi2_fleet_launch": [_P] * 11 + [_I] * 6 + [_P],
     "log_posterior_fleet_fused_launch": [_P] * 21 + [_I] * 15 + [_F] * 2 + [_P],
     # the segmented large-nd lane (ops.spec_segmented)
@@ -369,13 +407,14 @@ def spectrum_chi2(Wcomb, av, D_flat, ext_k_data, data_flux, data_err, V, Vpinv, 
                            (data_flux, "data_flux", (nd,)), (inv_err, "1/data_err", (nd,)),
                            (VpinvT, "Vpinv", (3, nd)), (VT, "V.T", (3, nd))):
         _check(t, name, dev, shape)
+    wpb = walkers_per_block(nd, NO, 0)
     out = torch.empty(NW, dtype=_F32, device=dev)
     if NW == 0:
         return out
     _launch("spectrum_chi2_launch", "spectrum_chi2",
             Wcomb.data_ptr(), av.data_ptr(), D_flat.data_ptr(), ext_k_data.data_ptr(),
             data_flux.data_ptr(), inv_err.data_ptr(), VpinvT.data_ptr(), VT.data_ptr(),
-            med.data_ptr(), out.data_ptr(), NW, NO, nd, iters, int(bool(renorm)), recip,
+            med.data_ptr(), out.data_ptr(), NW, NO, nd, iters, int(bool(renorm)), recip, wpb,
             _stream(dev))
     return out
 
@@ -581,10 +620,12 @@ def log_posterior_fused(p, tgt):
     if p.device.type == "cpu":
         return log_posterior_fused_reference(p, tgt)
     _require_cuda(p, "log_posterior_fused")
+    nT, nG, nd = tgt.D.shape
+    wpb = walkers_per_block(nd, nT * nG, 1 + tgt.nspec)
     out, args = posterior_launch_args(p, tgt, "log_posterior_fused")
     if args:
         _launch("log_posterior_fused_launch", "log_posterior_fused", *args,
-                float(tgt.rad_sigma_frac), _stream(p.device))
+                float(tgt.rad_sigma_frac), wpb, _stream(p.device))
     return out
 
 

@@ -8,16 +8,18 @@ parent commit, unpacked with ``git archive`` into a directory that
 kernel of the other build it prints whether this build has it with the same
 ptxas line (registers, barriers, stack, shared memory) and the same SASS
 (``cuobjdump -sass``: each instruction's text and both of its encoding
-words), then the groups of this build's kernels that compile to one SASS.  It
-exits 1 when a kernel of the other build is missing here or differs.  It needs
-the CUDA toolkit (nvcc, cuobjdump), not a card.
+words), then the groups of this build's kernels that compile to one SASS.  A
+kernel whose parameters changed (another mangled name) is held against the one
+kernel of this build with its qualified name.  It exits 1 when a kernel of the
+other build is missing here or differs.  It needs the CUDA toolkit (nvcc,
+cuobjdump), not a card.
 
-Every kernel of the port includes the shared device bodies
+Most kernels of the port include the shared device bodies
 (``spectrum_block.cuh``, ``posterior_body.cuh``, ``block_common.cuh``), and the
 experiment kernels are instantiations of them behind compile-time flags that
 default to the production code.  An edit to one of those headers (a new flag,
-or the K1 redesign that ROADMAP queues) must show which production kernels it
-changed; a time on the card cannot, since K1's run-to-run spread is about 5 %.
+a new body beside them) must show which production kernels it changed; a time
+on the card cannot, since K1's run-to-run spread is about 5 %.
 """
 from __future__ import annotations
 
@@ -78,11 +80,40 @@ def describe(lib: Path) -> tuple:
     return ptxas_lines(lib.with_suffix(".log").read_text()), sass(dump)
 
 
+def base_name(mangled: str) -> str:
+    """The qualified name (``mcmc_spec::kernel``) of an Itanium-mangled nested
+    name, without its template and parameter encoding; other names as they are."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, parts = 3, []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        parts.append(mangled[j:j + n])
+        i = j + n
+    return "::".join(parts) or mangled
+
+
+def counterpart(kernel: str, names) -> str:
+    """``kernel`` if ``names`` has it, else the one name of ``names`` with its
+    base name (a kernel whose parameters changed), else ``kernel``."""
+    if kernel in names:
+        return kernel
+    same = [n for n in names if base_name(n) == base_name(kernel)]
+    return same[0] if len(same) == 1 else kernel
+
+
 def compare(other: tuple, this: tuple) -> list:
-    """[(kernel, same ptxas line, same SASS)] for every kernel of ``other``."""
+    """[(kernel, same ptxas line, same SASS)] for every kernel of ``other``, each held
+    against its counterpart in ``this``."""
     (p_other, s_other), (p_this, s_this) = other, this
-    return [(k, p_other[k] == p_this.get(k), s_other.get(k) == s_this.get(k))
-            for k in sorted(p_other)]
+    rows = []
+    for k in sorted(p_other):
+        t = counterpart(k, p_this)
+        rows.append((k, p_other[k] == p_this.get(t), s_other.get(k) == s_this.get(t)))
+    return rows
 
 
 def same_sass_groups(s: dict) -> list:
@@ -102,9 +133,11 @@ def main(argv=None) -> int:
     other = describe(build(Path(argv[0]).resolve()))
     rows = compare(other, this)
     for name, same_ptxas, same_sass in rows:
+        t = counterpart(name, this[0])
         print(f"{'same' if same_ptxas else 'DIFF'} ptxas, {'same' if same_sass else 'DIFF'} SASS "
-              f"({len(this[1].get(name, []))} SASS lines): {name}\n"
-              f"    other: {other[0][name]}\n    this:  {this[0].get(name)}")
+              f"({len(this[1].get(t, []))} SASS lines): {name}\n"
+              f"    other: {other[0][name]}\n    this:  {this[0].get(t)}"
+              + (f" (as {t})" if t != name and t in this[0] else ""))
     for group in same_sass_groups(this[1]):
         print("one SASS:", ", ".join(group))
     return 0 if all(p and s for _, p, s in rows) else 1

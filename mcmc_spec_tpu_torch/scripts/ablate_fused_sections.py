@@ -4,7 +4,8 @@
 ``posterior_sections`` (S12, ``csrc/posterior_sections.cu``) is K1 with its
 sections switched off at compile time, one instantiation per variant:
 
-  full        the real kernel (it must equal ``log_posterior_fused`` bit for bit)
+  full        K1's posterior on the block-per-walker body (it must agree with
+              ``log_posterior_fused``, one warp per walker, to rel 5e-5)
   no_phot     contrast and photometry magnitudes skipped
   no_priors   the Av(d) and Gaussian priors and the bounds skipped
   no_epilogue both of the above skipped (W construction + spectrum only)
@@ -38,6 +39,7 @@ from mcmc_spec_tpu_torch.scripts.timing import describe, resolve_device, timer
 NWALK = 32768
 ND = 1792
 NCHECK = 512
+FULL_RTOL = 5e-5  # full against K1, which sums in another order
 DIALS = dict(median_iters=14, matmul_passes=3, recip_newton=2)
 # (phot, priors, spectrum, W) per variant, in the order of the JAX script and the
 # kernel's variant ids
@@ -115,9 +117,15 @@ def main(device="cuda", nwalk=NWALK, nd=ND, grid_step=1.0):
     for name in VARIANTS:
         got = posterior_sections(check, tgt, name)
         if name == "full":
-            if not torch.equal(got, real):
-                raise RuntimeError("full variant differs from log_posterior_fused")
-            print(f"full-variant sanity vs the production kernel: bit for bit on "
+            # the JAX script's comparison: the same -inf support, rel 5e-5 on the rest
+            fin = torch.isfinite(real)
+            same = bool(torch.equal(fin, torch.isfinite(got)))
+            g, r = got[fin].double(), real[fin].double()
+            rel = float(((g - r).abs() / r.abs().clamp(min=1e-9)).max()) if len(r) else 0.0
+            if not same or rel >= FULL_RTOL:
+                raise RuntimeError(f"full variant differs from log_posterior_fused: support "
+                                   f"identical {same}, max rel {rel:.2e}")
+            print(f"full-variant sanity vs the production kernel: max rel {rel:.2e} on "
                   f"{check.shape[0]} walkers", flush=True)
         elif torch.allclose(got, real, equal_nan=True):
             raise RuntimeError(f"variant {name} computes the same values as the full kernel")

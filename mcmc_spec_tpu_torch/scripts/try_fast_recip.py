@@ -72,7 +72,9 @@ def spectrum_recip(medd, Wc, av, D, kd, data, ie, Vp, VT, recip, noexp=False, it
     magic-seed reciprocal with ``recip`` Newton steps; [NW, 1] f32.
 
     The operands in the JAX script's layout (``synthetic_arrays``).  At
-    ``recip`` = 0 without ``noexp`` it is K3 (``spectrum_chi2``, renorm on).
+    ``recip`` = 0 without ``noexp`` it is K3's arithmetic (``spectrum_chi2``, renorm
+    on) on the block-per-walker body: the same model row and median, the sums in
+    another order.
     """
     if recip < 0 or not 1 <= iters <= 31:
         raise ValueError(f"spectrum_recip: recip >= 0 and 1 <= iters <= 31 (got {recip}, {iters})")

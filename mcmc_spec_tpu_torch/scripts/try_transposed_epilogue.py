@@ -1,10 +1,11 @@
 """K1 with its scalar epilogue run walkers-across-lanes, on the card
 (counterpart of ``scripts/try_transposed_epilogue.py``).
 
-K1 (``log_posterior_fused``) runs one block per walker, and the walker's
-scalar part (MIST logg, grid weights, contrast and photometry magnitudes,
-priors, bounds) in one warp with lanes over grid points and bands while the
-other seven warps wait.  ``posterior_transposed`` (S8,
+The block-per-walker posterior body (``csrc/posterior_body.cuh``, K1's
+first version, still K5's) runs the walker's scalar part (MIST logg, grid
+weights, contrast and photometry magnitudes, priors, bounds) in one warp with
+lanes over grid points and bands while the other seven warps wait; K1 now
+runs one warp per walker.  ``posterior_transposed`` (S8,
 ``csrc/posterior_transposed.cu``) runs one block per tile of 32 walkers: the
 W path as K1 does, the spectrum block of each walker in turn, then the
 epilogue of the whole tile in one warp, one walker per lane.  It computes K1's

@@ -78,3 +78,20 @@ def test_compare_flags_changed_and_missing_kernels():
 def test_main_wants_one_checkout(capsys):
     assert cb.main([]) == 2
     assert "compare_builds <other checkout>" in capsys.readouterr().err
+
+
+def test_kernel_with_new_parameters_is_held_against_its_counterpart():
+    """A kernel whose parameters changed keeps its qualified name: the comparison finds it."""
+    name = ("_ZN9mcmc_spec26log_posterior_fused_kernelEPKfS1_NS_15PosteriorTablesENS_"
+            "15PosteriorConfigEfPf")
+    assert cb.base_name(name) == "mcmc_spec::log_posterior_fused_kernel"
+    assert cb.base_name("_ZN9mcmc_spec25posterior_sections_kernelILb0EEEvPKf") == \
+        "mcmc_spec::posterior_sections_kernel"
+    assert cb.base_name("trivial") == "trivial"
+    p, s = cb.ptxas_lines(LOG), cb.sass(DUMP)
+    moved = {k + "i": v for k, v in p.items()}
+    assert cb.counterpart("_ZN9mcmc_spec2k1Ev", moved) == "_ZN9mcmc_spec2k1Evi"
+    assert cb.counterpart("_ZN9mcmc_spec2k9Ev", moved) == "_ZN9mcmc_spec2k9Ev"
+    this = (moved, {k + "i": v for k, v in s.items()})
+    assert cb.compare((p, s), this) == [("_ZN9mcmc_spec2k1Ev", True, True),
+                                        ("_ZN9mcmc_spec2k3Ev", True, True)]

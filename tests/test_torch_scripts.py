@@ -321,7 +321,8 @@ def test_mains_run_on_cpu(capsys):
     assert list(a) == list(ab.VARIANTS) and all(ms > 0 for ms in a.values())
     out = capsys.readouterr().out
     assert "host-clock times of the plain versions, not device times" in out
-    assert "bit for bit" in out and "attribution (vs full)" in out and "[receipt]" in out
+    assert "full-variant sanity vs the production kernel: max rel" in out
+    assert "attribution (vs full)" in out and "[receipt]" in out
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):
