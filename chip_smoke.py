@@ -9,31 +9,39 @@ Phases, each of which exits non-zero on failure:
 
 1. device: a CUDA card is required; prints its name and power limit;
 2. build: compiles the kernels of ``mcmc_spec_tpu_torch/csrc`` with nvcc;
-3. kernels vs plain: the fused-posterior (K1) and spectrum-chi^2 (K3) kernels,
-   one warp per walker, with their walkers per block and ptxas lines (no
-   barrier), against their plain PyTorch versions on the card at both dial
-   sets: 16,384 + 5 walkers on the bench target, three small targets, and
-   nd = 1,791 and 4,096 with a ragged last block; then CUDA-event times;
+3. kernels vs plain: the walkers per block and ptxas lines (no barrier) of
+   the one-warp-per-walker kernels K1, K3 and K5, and K7's (no spill); the
+   fused-posterior (K1) and spectrum-chi^2 (K3) kernels against their plain
+   PyTorch versions on the card at both dial sets: 16,384 + 5 walkers on the
+   bench target, three small targets, and nd = 1,791 and 4,096 with a ragged
+   last block; then CUDA-event times;
 4. the two-stage fit on the koi2298-scale bench target: annealer (K3) on
    3,072 walkers, top third seeds the stretch sampler (K1), launch counts;
 5. throughput: the bench workload, 32,768 walkers, 128 timed steps, at the
    production and the exact dials;
 6. fleet: nine ragged koi2298-scale targets (nd 1792 ... 1408, 2 or 1
    contrasts) padded to (1792, 2) and stacked, 4,096 walkers each: the fleet
-   spectrum-chi^2 (K4) and fused fleet posterior (K5) kernels against their
-   plain versions and K5 against K1 on the unpadded targets, then
+   spectrum-chi^2 (K4) and fused fleet posterior (K5, one warp per walker of
+   the flattened fleet, so blocks span targets) kernels against their plain
+   versions and K5 against K1 on the unpadded targets, then
    ``run_fleet_ensemble`` (16 warm-up + 64 timed steps) on the composed
    default (K4) and with ``MCMC_SPEC_FUSED_EVAL=1`` (K5), with launch counts
    and the device busy share under ``torch.profiler``;
-7. large nd: the segmented lane (K6 model with extinction, K7 k-ary median,
-   K8 renorm partials, K9 chi^2 residual) on the bench target at nd = 65,536
-   (the JAX package's ``largend`` cell) and 131,072: each kernel and the
-   composition against their plain versions (K7 bit for bit) at 1,024 + 5
-   walkers, again at the untileable odd nd = 65,535, the composition against
-   K3 at nd = 4,096 where the dispatch switches lanes, the two-stage fit at
-   nd = 65,536 through ``log_posterior_batch`` and ``optimizer_chi2_batch``,
-   the throughput of 2,048 walkers (16 warm-up + 128 timed steps), and a
-   crossover of the lanes at 1,024 walkers from nd = 4,096 to 65,536;
+7. large nd: the segmented lane (K6 model with extinction, K7 k-ary median
+   by a histogram select, K8 renorm partials, K9 chi^2 residual) on the bench
+   target at nd = 65,536 (the JAX package's ``largend`` cell) and 131,072:
+   each kernel and the composition against their plain versions (K7 bit for
+   bit) at 1,024 + 5 walkers, again at the untileable odd nd = 65,535; K7 bit
+   for bit on 1,024 real rows and its edge rows (negative and NaN patterns,
+   zeros, constant and tied rows, one bin holding 90 %, the 1e30 sentinel
+   above odd and even counts) at nd = 65,536, 65,535, 131,072 and 4,096 and
+   ``iters`` 31, 14, 15, 30; the composition against K3 at nd = 4,096 where
+   the dispatch switches lanes, the two-stage fit at nd = 65,536 through
+   ``log_posterior_batch`` and ``optimizer_chi2_batch`` (K7's launches split
+   into the annealer's exact and stage 2's fast medians), the throughput of
+   2,048 walkers (16 warm-up + 128 timed steps) with K7's share of the
+   device time, K7's fast, exact and constant-row times, and a crossover of
+   the lanes at 1,024 walkers from nd = 4,096 to 65,536;
 8. experiments: the cost-attribution kernels of ``mcmc_spec_tpu_torch.scripts``
    against their plain versions on the card (S10 multiply chains and S11 row
    median bit for bit, S11 also against ``torch.kthvalue``; S4 spectrum with
@@ -66,7 +74,10 @@ output written once) over 3.35 TB/s and its operations over the 67 TFLOP/s
 float32 peak outside the tensor cores (H100 SXM data sheet).  Operations are
 counted from this run's inputs: an add, multiply, compare, divide or exp is
 one, an FMA two; the model row counts only the non-zero blend weights; a
-median count pass is a compare and an add per point and threshold.  The
+median count pass is a compare and an add per point and threshold.  K7's
+bound is its function's bytes alone (the model read once, the medians
+written), whatever algorithm computes the median; its report entry also
+carries ``launches_exact``, ``launches_fast`` and ``ms_exact``.  The
 multiply chains of S10 count one operation per multiply and per add, so their
 bound holds them against 67 TFLOP/s, twice the rate of one multiply per FP32
 lane per clock (S10 measures the latter).
@@ -102,6 +113,11 @@ NW_LARGE = 1024  # the JAX largend cell's evaluation batch
 LARGE_ANNEAL_STEPS, LARGE_SAMPLE_STEPS = 8, 64
 LARGE_WARMUP, LARGE_TIMED = 16, 128
 CROSSOVER_ND = (4096, 8192, 16384, 32768, 65536)
+# the device names of K6-K9, for their share of the large-nd step
+LANE_KERNEL_NAMES = ("model_extinct_kernel", "median_kary_kernel", "renorm_partials_kernel",
+                     "resid_chi2_kernel")
+K7_ITERS = (31, 14, 15, 30)  # K7's dials held bit for bit: exact, production, two levels
+K7_CONST = 1.2345  # the value of K7's constant rows
 ND_EXP_ODD = 1791  # S11's odd row
 PROBES_BUDGET_S = 20  # phase 10's wall-time budget, printed beside its time
 TOTAL_RTOL = 1e-5  # S3's full table totals against the plain ones (phase 10)
@@ -243,8 +259,9 @@ def bound(nbytes_moved, ops):
 
 
 def device_busy(fn):
-    """(device busy share of the wall time, kernel launches, top kernels [(name, ms)]) of
-    ``fn()`` under ``torch.profiler``; (None, 0, []) where it reports no device time."""
+    """(device busy share of the wall time, kernel launches, top kernels [(name, ms)], every
+    kernel {name: ms}) of ``fn()`` under ``torch.profiler``; (None, 0, [], {}) where it
+    reports no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -258,10 +275,11 @@ def device_busy(fn):
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(dev_us(e) for e in kernels)
     if total <= 0:
-        return None, 0, []
+        return None, 0, [], {}
     top = sorted(kernels, key=dev_us, reverse=True)[:4]
     return (total * 1e-6 / wall, sum(e.count for e in kernels),
-            [(e.key[:60], dev_us(e) * 1e-3) for e in top])
+            [(e.key[:60], dev_us(e) * 1e-3) for e in top],
+            {e.key: dev_us(e) * 1e-3 for e in kernels})
 
 
 def edge_walkers(truth, tgt):
@@ -300,8 +318,9 @@ def check_k1(name, tgt, P, max_outside):
 
 
 def warp_kernels_report(tgt):
-    """K1 and K3 run one warp per walker: print each kernel's walkers per block at the
-    bench shape and at LARGE_ND, and its ptxas line, which must show no barrier."""
+    """K1, K3 and K5 run one warp per walker: print each kernel's walkers per block at the
+    bench shape (K5's fleet is padded to it) and at LARGE_ND, and its ptxas line, which
+    must show no barrier; then K7's ptxas line, which must show no spill."""
     from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
     from mcmc_spec_tpu_torch.ops import spec_segmented as seg
     from mcmc_spec_tpu_torch.runtime import compare_builds, cuda_build
@@ -309,7 +328,8 @@ def warp_kernels_report(tgt):
     lines = compare_builds.ptxas_lines(cuda_build.library_path().with_suffix(".log").read_text())
     nT, nG, nd = tgt.D.shape
     for name, kernel, weight_rows in (("K1", "log_posterior_fused_kernel", 1 + tgt.nspec),
-                                      ("K3", "spectrum_chi2_kernel", 0)):
+                                      ("K3", "spectrum_chi2_kernel", 0),
+                                      ("K5", "log_posterior_fleet_fused_kernel", 1 + tgt.nspec)):
         line = next(v for k, v in lines.items() if kernel in k)
         wpb = {n: ck.walkers_per_block(n, nT * nG, weight_rows) for n in (nd, seg.LARGE_ND)}
         print(f"[{name} one warp per walker] walkers per block: "
@@ -317,6 +337,12 @@ def warp_kernels_report(tgt):
                           "bytes of shared memory)" for n, w in wpb.items())
               + f"; ptxas: {line}")
         require("used 0 barriers" in line, f"{name}: ptxas reports a barrier: {line}")
+    log = cuda_build.library_path().with_suffix(".log").read_text().splitlines()
+    key = next(k for k in lines if "median_kary_kernel" in k)
+    props = next(log[i + 1].strip() for i, line in enumerate(log)
+                 if f"Function properties for {key}" in line)
+    print(f"[K7 histogram select] ptxas: {lines[key]}; {props}")
+    require(" 0 bytes spill stores" in props, f"K7 spills registers: {props}")
 
 
 def check_k3(name, tgt, P, max_outside):
@@ -577,7 +603,7 @@ def fleet_run(fleet, coords, dev, fused):
     other = "spectrum_chi2_fleet" if fused else "log_posterior_fleet_fused"
     require(launches[kernel] > 0, f"fleet {route}: {kernel} was not launched")
     require(launches[other] == 0, f"fleet {route}: {other} was launched")
-    busy, n_kernels, top = device_busy(lambda: run_fleet_ensemble(state, fleet, 4, thin=4))
+    busy, n_kernels, top, _ = device_busy(lambda: run_fleet_ensemble(state, fleet, 4, thin=4))
     share = "not measured (the profiler reported no device time)" if busy is None else \
         f"{busy:.3f}, {n_kernels / 4:.0f} kernel launches per step"
     print(f"[fleet {route}] device busy share under torch.profiler (4 steps): {share}; "
@@ -675,6 +701,13 @@ def lane_operands(tgt, P):
             tgt.n_data_true)
 
 
+def lane_model(tgt, P):
+    """K6's model rows [walkers, nd] of walkers ``P``: K7's real rows."""
+    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
+
+    return seg.model_extinct(*lane_operands(tgt, P)[:4])
+
+
 def dial_kwargs(dials):
     return dict(iters=dials["median_iters"], mm_passes=dials["matmul_passes"],
                 recip=dials["recip_newton"])
@@ -741,6 +774,83 @@ def check_lane(name, tgt, P, dials, max_outside, eager):
     return errs
 
 
+def k7_edge_rows(real):
+    """K7's edge rows beside a real model row ``real`` [nd] (float32 on the card):
+    ([rows, nd] float32, [rows] int32 true counts, names).  Zeros, a constant row and
+    one bin holding 90 % of a row (its shared-memory atomics all on one address),
+    negative patterns (-0.0, -1, a negative NaN), positive NaN and +inf, a row of NaN
+    (the largest pattern too), subnormals, the whole bit range, five tied values, and
+    the 1e30 sentinel above an odd and an even count of true points."""
+    nd = real.shape[0]
+    dev = real.device
+    f = lambda bits: torch.as_tensor(np.asarray(bits, dtype=np.int64).astype(np.int32),
+                                     device=dev).view(torch.float32)
+    rng = np.random.RandomState(7)
+    j = torch.arange(nd, device=dev)
+    rows, counts, names = [], [], []
+
+    def add(name, row, n=None):
+        # each row twice: with an even and an odd count of true points
+        for parity, count in (("even", n or nd & ~1), ("odd", (n or nd) - 1 | 1)):
+            rows.append(row.to(torch.float32))
+            counts.append(count)
+            names.append(f"{name}, {parity} count")
+
+    add("zeros", torch.zeros(nd, device=dev))
+    add("constant", torch.full((nd,), K7_CONST, device=dev))
+    one_bin = real.clone()
+    one_bin[j % 10 != 0] = real[0]
+    add("one bin holds 90 %", one_bin)
+    neg = real.clone()
+    neg[j % 3 == 0] = -0.0
+    neg[j % 5 == 0] = -1.0
+    neg[j % 7 == 0] = f([0xFFC00000])
+    add("negative patterns", neg)
+    nan = real.clone()
+    nan[j % 10 == 0] = f([0x7FC00000])
+    nan[j % 11 == 0] = float("inf")
+    add("positive NaN and +inf", nan)
+    add("every value NaN", f(np.full(nd, 0x7FC00000)))
+    add("the largest pattern", f(np.full(nd, 0x7FFFFFFF)))
+    add("subnormals", f(rng.permutation(nd) + 1))
+    add("the whole bit range", f(rng.randint(0, 2**31 - 1, nd)))
+    add("five tied values", f(np.int64(0x3F800000) + rng.randint(0, 5, nd)))
+    pad = real.clone()
+    pad[nd - nd // 3:] = 1e30
+    add("the 1e30 sentinel above the true points", pad, (nd - nd // 3) & ~1)
+    return torch.stack(rows), torch.tensor(counts, dtype=torch.int32, device=dev), names
+
+
+def check_k7(name, model, n_true):
+    """K7 bit for bit against its plain version on the real rows ``model`` [NW, nd] plus
+    the edge rows of ``k7_edge_rows``, at every dial of K7_ITERS, with one count for all
+    rows and with a count per row (the real rows: n_true - i % 3).  An even count's
+    upper middle is a float mean, so two NaN results count as equal whatever their
+    payload; every other result must have the same bits."""
+    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
+
+    edge, counts, names = k7_edge_rows(model[0])
+    rows = torch.cat([model, edge]).contiguous()
+    NW = model.shape[0]
+    per_row = torch.cat([(int(n_true) - torch.arange(NW, device=model.device) % 3)
+                         .to(torch.int32), counts])
+    for iters in K7_ITERS:
+        for label, n in (("one count", n_true), ("a count per row", per_row)):
+            got = seg.median_nonneg(rows, n, iters)
+            torch.cuda.synchronize()
+            ref = seg.median_nonneg_reference(rows, n, iters)
+            same = got.view(torch.int32) == ref.view(torch.int32)
+            both_nan = torch.isnan(got) & torch.isnan(ref)
+            bad = torch.nonzero(~(same | both_nan)).flatten().tolist()
+            print(f"[K7 {name} iters={iters} {label}] {rows.shape[0]} rows: "
+                  f"{int(same.sum())} bit-identical, {int((both_nan & ~same).sum())} NaN on "
+                  f"both sides with other payloads, {len(bad)} differ")
+            require(not bad, f"K7 {name} iters={iters} {label}: rows "
+                    + ", ".join(f"{i} ({names[i - NW] if i >= NW else 'real'}: "
+                                f"{float(got[i])!r} vs {float(ref[i])!r})" for i in bad[:5])
+                    + " differ from the plain version")
+
+
 def check_lane_boundary(dev):
     """At nd = LARGE_ND both lanes apply: the segmented composition against K3."""
     from mcmc_spec_tpu_torch.bench_target import init_walker_batch
@@ -750,6 +860,7 @@ def check_lane_boundary(dev):
     tgt, truth = largend_target(dev, seg.LARGE_ND)
     P = torch.cat([init_walker_batch(tgt, truth, NW_LARGE, seed=3), edge_walkers(truth, tgt)])
     ops = lane_operands(tgt, P)
+    check_k7(f"nd={seg.LARGE_ND}", lane_model(tgt, P[:NW_LARGE]), tgt.n_data_true)
     for renorm in (True, False):
         got = seg.spectrum_chi2_segmented(*ops, renorm=renorm, **dial_kwargs(EXACT))
         ref = ck.spectrum_chi2(*ops[:9], renorm=renorm, **dial_kwargs(EXACT))
@@ -762,7 +873,8 @@ def check_lane_boundary(dev):
 
 def largend_fit(tgt, truth, dev):
     """The two-stage fit at nd = ND_FIT through the user entry points: the main path
-    of the segmented lane.  Returns the launch counts and the stage-1 wall time."""
+    of the segmented lane.  Returns the launch counts, the stage-1 wall time and K7's
+    launches by median mode ({"exact": the annealer's, "fast" or "exact": stage 2's})."""
     from mcmc_spec_tpu_torch.inference.anneal import init_walkers, run_anneal
     from mcmc_spec_tpu_torch.inference.batched import log_posterior_batch
     from mcmc_spec_tpu_torch.inference.stretch import init_ensemble, run_ensemble
@@ -777,6 +889,7 @@ def largend_fit(tgt, truth, dev):
     params, chi, _ = run_anneal(tgt, p0, gen, steps=LARGE_ANNEAL_STEPS)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    k7_stage1 = ck.LAUNCHES["median_nonneg"]  # the median-only scoring: the exact median
     take = NW_LARGE // 3
     state = init_ensemble(params[torch.argsort(chi)[:take]], logp, gen)
     state, chain, _ = run_ensemble(state, logp, LARGE_SAMPLE_STEPS, thin=8)
@@ -796,25 +909,22 @@ def largend_fit(tgt, truth, dev):
         require(launches[name] > 0, f"{name} was not launched in the large-nd fit")
     for name in ("log_posterior_fused", "spectrum_chi2"):
         require(launches[name] == 0, f"{name} was launched in the large-nd fit")
+    stage2_mode = "exact" if tgt.median_iters >= 31 else "fast"
+    k7_modes = {"exact": k7_stage1, "fast": 0}
+    k7_modes[stage2_mode] += launches["median_nonneg"] - k7_stage1
+    print(f"[largend fit nd={ND_FIT}] K7 launches: {k7_stage1} exact in stage 1, "
+          f"{launches['median_nonneg'] - k7_stage1} {stage2_mode} in stage 2 (iters "
+          f"{tgt.median_iters})")
     med = chain[chain.shape[0] // 2:].reshape(-1, tgt.ndim).median(dim=0).values.cpu().numpy()
     for k, (m, t) in enumerate(zip(med, truth)):
         print(f"[largend fit] param {k}: posterior median {m:.6g}, truth {t:.6g}")
-    return launches, t1 - t0
-
-
-def kary_ops(NW, nd, iters, n_true):
-    """Compares and counts of the k-ary median on [NW, nd]: 3 thresholds per round, the
-    exact mode's single-bit count and, for an even n_true, the upper-middle pass."""
-    if iters >= 31:
-        per = 15 * 6 + 2 + (0 if n_true % 2 else 3)
-    else:
-        per = 6 * ((iters + 1) // 2)
-    return NW * nd * per
+    return launches, t1 - t0, k7_modes
 
 
 def lane_kernel_times(tgt, P, dials, plain=False):
     """CUDA-event ms of K6-K9 alone on walkers ``P`` (renorm on).  With ``plain``:
-    ({name: (kernel ms, plain ms)}, {name: library ms}, {name: bound})."""
+    ({name: (kernel ms, plain ms)}, {name: library ms}, {name: bound}, K7's other times
+    {"exact": the exact median, "constant 14"/"constant 31": rows of one value})."""
     from mcmc_spec_tpu_torch.ops import spec_segmented as seg
 
     Wcomb, av, D, kd, data, err, V, Vpinv, med_data, n_true = lane_operands(tgt, P)
@@ -843,18 +953,23 @@ def lane_kernel_times(tgt, P, dials, plain=False):
     r1 = (int(n_true) + 1) // 2
     out = {k: (times[k], cuda_ms(ref, reps=5)) for k, (_, ref) in calls.items()}
     library = {"median_nonneg": cuda_ms(lambda: torch.kthvalue(model, r1, dim=1))}
+    const = torch.full_like(model, K7_CONST)
+    k7 = {"exact": cuda_ms(lambda: seg.median_nonneg(model, n_true, 31)),
+          "constant 14": cuda_ms(lambda: seg.median_nonneg(const, n_true, 14)),
+          "constant 31": cuda_ms(lambda: seg.median_nonneg(const, n_true, 31))}
     inv_err, VT = 1.0 / err, V.T.contiguous()
     bounds = {
         "model_extinct": bound(nbytes(Wcomb, av, D, kd, model),
                                2 * int(torch.count_nonzero(Wcomb)) * nd
                                + 3 * int((av > 0).sum()) * nd),
-        "median_nonneg": bound(nbytes(model, med) + 4, kary_ops(NW, nd, iters, int(n_true))),
+        # the function's work, whatever computes it: the model read once, the medians out
+        "median_nonneg": bound(nbytes(model, med) + 4, 0),
         # a multiply, a divide and three FMAs per point
         "renorm_partials": bound(nbytes(model, scale, data, Vpinv, coeffs), 8 * NW * nd),
         # the scale, the fit (a multiply and two FMAs), a divide, the residual, its square sum
         "resid_chi2": bound(nbytes(model, scale, coeffs, data, inv_err, VT, med), 11 * NW * nd),
     }
-    return out, library, bounds
+    return out, library, bounds, k7
 
 
 def largend_throughput(dev, targets):
@@ -891,12 +1006,19 @@ def largend_throughput(dev, targets):
                   f"({', '.join(f'{k} {v:.4f}' for k, v in kern.items())}); eager sort "
                   f"composition, one {NW_LARGE}-walker evaluation {eager:.4f} ms")
             if nd == ND_FIT and label == "production":
-                busy, n_kernels, top = device_busy(lambda: run_ensemble(state, logp, 4, thin=4))
+                busy, n_kernels, top, every = device_busy(
+                    lambda: run_ensemble(state, logp, 4, thin=4))
                 share = ("not measured (the profiler reported no device time)" if busy is None
                          else f"{busy:.3f}, {n_kernels / 4:.0f} kernel launches per step")
+                k7 = sum(v for k, v in every.items() if "median_kary_kernel" in k)
+                lane = sum(v for k, v in every.items()
+                           if any(n in k for n in LANE_KERNEL_NAMES))
+                k7_share = (f"K7 {k7:.4f} ms of {lane:.4f} ms in the lane's four kernels "
+                            f"({k7 / lane:.3f}), of {sum(every.values()):.4f} ms on the device "
+                            f"({k7 / sum(every.values()):.3f})" if lane > 0 else "not measured")
                 print(f"[largend throughput nd={nd} {label}] device busy share under "
                       f"torch.profiler (4 steps): {share}; top kernels (ms): "
-                      f"{[(k, round(v, 4)) for k, v in top]}")
+                      f"{[(k, round(v, 4)) for k, v in top]}; {k7_share}")
     return rates
 
 
@@ -954,32 +1076,42 @@ def largend_checks(dev):
     errs = check_lane(f"nd={ND_FIT} exact dials (31, 6, 0)", tgt, P, EXACT, 0, eager=True)
     check_lane(f"nd={ND_FIT} production dials (14, 3, 2)", tgt, P, PROD,
                int(PROD_MAX_OUTSIDE_FRAC * NW_LARGE), eager=False)
+    check_k7(f"nd={ND_FIT}", lane_model(tgt, P[:NW_LARGE]), tgt.n_data_true)
     odd, odd_truth = largend_target(dev, ND_ODD)
     Podd = torch.cat([init_walker_batch(odd, odd_truth, NW_LARGE, seed=2),
                       edge_walkers(odd_truth, odd)])
     check_lane(f"nd={ND_ODD} exact dials", odd, Podd, EXACT, 0, eager=True)
     check_lane(f"nd={ND_ODD} production dials", odd, Podd, PROD,
                int(PROD_MAX_OUTSIDE_FRAC * NW_LARGE), eager=False)
+    check_k7(f"nd={ND_ODD}", lane_model(odd, Podd[:NW_LARGE]), odd.n_data_true)
+    wide, wide_truth = largend_target(dev, ND_WIDE)
+    check_k7(f"nd={ND_WIDE}", lane_model(wide, init_walker_batch(wide, wide_truth, NW_LARGE)),
+             wide.n_data_true)
     check_lane_boundary(dev)
-    return tgt, truth, P, errs
+    return tgt, truth, P, errs, (wide, wide_truth)
 
 
 def largend_phase(dev):
-    tgt, truth, P, errs = largend_checks(dev)
+    tgt, truth, P, errs, wide = largend_checks(dev)
     t0 = time.perf_counter()
-    launches, stage1_s = largend_fit(tgt, truth, dev)
+    launches, stage1_s, k7_modes = largend_fit(tgt, truth, dev)
     print(f"[largend] fit {time.perf_counter() - t0:.1f} s")
-    wide = largend_target(dev, ND_WIDE)
     rates = largend_throughput(dev, {ND_FIT: (tgt, truth), ND_WIDE: wide})
 
     # the kernel report: one half-step at nd = ND_FIT, production dials
-    times, library, bounds = lane_kernel_times(dataclasses.replace(tgt, **PROD),
-                                               P[:NW_LARGE].contiguous(), PROD, plain=True)
+    times, library, bounds, k7 = lane_kernel_times(dataclasses.replace(tgt, **PROD),
+                                                   P[:NW_LARGE].contiguous(), PROD, plain=True)
     for k, (ms, plain_ms) in times.items():
         lib = library.get(k)
         print(f"[time {k} production] {NW_LARGE} walkers x nd={ND_FIT}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bounds[k][0]:.5f} ms ({bounds[k][1]})"
               + (f", library (torch.kthvalue) {lib:.4f} ms" if lib is not None else ""))
+    print(f"[time median_nonneg] {NW_LARGE} walkers x nd={ND_FIT}: fast (iters 14) "
+          f"{times['median_nonneg'][0]:.4f} ms, exact {k7['exact']:.4f} ms; rows of one value "
+          f"{k7['constant 14']:.4f} ms fast, {k7['constant 31']:.4f} ms exact; bound "
+          f"{bounds['median_nonneg'][0]:.5f} ms: fast at "
+          f"{bounds['median_nonneg'][0] / times['median_nonneg'][0]:.3f} of it, exact at "
+          f"{bounds['median_nonneg'][0] / k7['exact']:.3f}")
     # K10, the composition of K6-K9, on the same half-step
     from mcmc_spec_tpu_torch.ops import spec_segmented as seg
 
@@ -992,7 +1124,8 @@ def largend_phase(dev):
           f"{sum(b[0] for b in bounds.values()):.5f} ms")
     cross = largend_crossover(dev, {ND_FIT: (tgt, truth)})
     return {"errs": errs, "launches": launches, "stage1_s": stage1_s, "rates": rates,
-            "times": times, "library": library, "bounds": bounds, "crossover": cross, "k10": k10}
+            "times": times, "library": library, "bounds": bounds, "crossover": cross, "k10": k10,
+            "k7": k7, "k7_modes": k7_modes}
 
 
 def experiments_checks(dev, tgt, truth):
@@ -1603,12 +1736,18 @@ def main() -> int:
                for name, script in (("trivial_probe", "dma_probe"),
                                     ("bisect_probe", "dma_probe_bisect"),
                                     ("bisect2_probe", "dma_probe_bisect2"))}
-    print(json.dumps({"kernels": [
+    report = [
         {"name": name, "route": "cuda", "source": f"mcmc_spec_tpu_torch/csrc/{src}",
          "replaces": where, "launches": n, "graph_replays": replays.get(name, 0),
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
          "library_ms": lib}
-        for name, src, where, n, err, ms, plain_ms, b, lib in rows]}))
+        for name, src, where, n, err, ms, plain_ms, b, lib in rows]
+    # K7's launches by median mode in the large-nd fit (the annealer's exact scoring, stage
+    # 2's fast median) and its exact time beside `ms`, the fast one
+    k7 = next(r for r in report if r["name"] == "median_nonneg")
+    k7.update({"launches_exact": lres["k7_modes"]["exact"],
+               "launches_fast": lres["k7_modes"]["fast"], "ms_exact": lres["k7"]["exact"]})
+    print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
-// The one-block-per-walker log-posterior body of the fused fleet posterior
-// K5 (log_posterior_fleet_fused.cu, a stacked, padded fleet) and of the
-// experiments S8 and S12; it was also the body of the fused posterior K1
-// (log_posterior_fused.cu, one unpadded target), which now runs one warp per
-// walker over a copy of the scalar part below.  K1 still takes its structs
-// and tent helpers from here.
+// The one-block-per-walker log-posterior body of the experiment S12 (S8 takes
+// its structs and helpers); it was also the body of the fused posterior K1
+// (log_posterior_fused.cu, one unpadded target) and the fused fleet
+// posterior K5 (log_posterior_fleet_fused.cu, a stacked, padded fleet),
+// which now run one warp per walker over a copy of the scalar part below
+// (posterior_warp.cuh).  K1 and K5 still take their structs and tent helpers
+// from here.
 //
 // Replaces the body of mcmc_spec_tpu/ops/pallas_kernels.py:_posterior_kernel
 // and _fleet_posterior_kernel (with _tent_w).  The per-walker scalar part
@@ -102,12 +103,12 @@ __device__ __forceinline__ float warp_tent_dot(const float* tc, const float* val
 // shared memory, nd + (1 + nspec) * NO floats.
 //
 // The section flags serve the cost ablation S12 (posterior_sections.cu,
-// scripts/ablate_fused_sections.py:variant_kernel) and are all
-// on for K1 and K5.  A section switched off yields the JAX variant's stub:
-// kPhot off -> chi_c = chi_p = 0; kPriors off -> lp = 0 (no priors, no
-// bounds); kSpectrum off -> chi_spec = sum(Wcomb); kW off -> Wk = teff * 1e-4
-// for every grid point (all NO weights non-zero, so the row build reads every
-// D row).
+// scripts/ablate_fused_sections.py:variant_kernel), now its only caller, and
+// are all on in its `full` variant.  A section switched off yields the JAX
+// variant's stub: kPhot off -> chi_c = chi_p = 0; kPriors off -> lp = 0 (no
+// priors, no bounds); kSpectrum off -> chi_spec = sum(Wcomb); kW off -> Wk =
+// teff * 1e-4 for every grid point (all NO weights non-zero, so the row build
+// reads every D row).
 template <bool kPhot = true, bool kPriors = true, bool kSpectrum = true, bool kW = true>
 __device__ inline float posterior_eval(const PosteriorConfig& a, const PosteriorTables& t,
                                        const TargetScalars& ts, const float* pw, float* dyn) {

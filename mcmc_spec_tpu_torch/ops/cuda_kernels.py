@@ -13,19 +13,20 @@ Four kernels, hand-written in CUDA C++ for ``sm_90a`` (``csrc/``), built by
   spectrum block of every walker of a stacked, padded fleet in one launch,
   one thread block per walker: the fleet's default spectrum term.
 * ``log_posterior_fleet_fused`` (K5, ``csrc/log_posterior_fleet_fused.cu``)
-  is K1 for a stacked, padded fleet, one thread block per walker: the
-  fleet's opt-in fused evaluation.
+  is K1 for a stacked, padded fleet, one warp per walker of the flattened
+  fleet: the fleet's opt-in fused evaluation.
 
 All four compute the spectrum-statistics body K2: the ``Wcomb @ D`` model
 row with extinction, the sort-free radix median, the degree-2 continuum
-renorm and the chi^2.  K1 and K3 run it one warp per walker, over a compact
-list of each walker's non-zero weights (``csrc/spectrum_warp.cuh``); K4 and
-K5 one block per walker (``csrc/spectrum_block.cuh``).  K1 and K3 take the
+renorm and the chi^2.  K1, K3 and K5 run it one warp per walker, over a
+compact list of each walker's non-zero weights (``csrc/spectrum_warp.cuh``);
+K4 one block per walker (``csrc/spectrum_block.cuh``).  K1 and K3 take the
 median of the whole row and the mean chi^2; K4 and K5 take per-target median
-ranks and ``sum * 1/n_true``, so padded points are inert.  K5 and the
-experiments S8 and S12 share the block-per-walker posterior body
-(``csrc/posterior_body.cuh``).  ``walkers_per_block`` chooses how many
-walkers a block of K1 or K3 holds.
+ranks and ``sum * 1/n_true``, so padded points are inert.  K1 and K5 share
+the warp-per-walker posterior body (``csrc/posterior_warp.cuh``), the
+experiments S8 and S12 the block-per-walker one (``csrc/posterior_body.cuh``).
+``walkers_per_block`` chooses how many walkers a block of K1, K3 or K5
+holds.
 
 Beside each kernel is its plain PyTorch version (``*_reference``): f32, the
 same pack-time dials, the arithmetic of the Pallas kernel, on the same
@@ -72,7 +73,7 @@ LAUNCHES = {"log_posterior_fused": 0, "spectrum_chi2": 0, "spectrum_chi2_fleet":
 # for the kernels' static shared memory: the kernels hold their walkers' model
 # rows of nd floats and blend weights in it
 ROW_SMEM_BYTES = 232448 - 1024
-# walkers (one warp each) a block of K1 or K3 holds at most: kWalkersMax in
+# walkers (one warp each) a block of K1, K3 or K5 holds at most: kWalkersMax in
 # csrc/spectrum_warp.cuh
 WALKERS_MAX = 8
 
@@ -83,9 +84,9 @@ def reset_launches() -> None:
 
 
 def warp_smem_bytes(nd: int, NO: int, weight_rows: int) -> int:
-    """Dynamic shared memory one walker of K1 or K3 holds, in bytes.
+    """Dynamic shared memory one walker of K1, K3 or K5 holds, in bytes.
 
-    The model row, ``weight_rows`` rows of NO blend weights (K1: ``1 +
+    The model row, ``weight_rows`` rows of NO blend weights (K1 and K5: ``1 +
     nspec``, Wcomb and the scaled components; K3: 0) and the compact list of
     non-zero weights (NO indices, NO weights), each part padded to 16 bytes:
     ``warp_smem_floats`` in ``csrc/spectrum_warp.cuh``.
@@ -94,8 +95,15 @@ def warp_smem_bytes(nd: int, NO: int, weight_rows: int) -> int:
     return 4 * (r4(nd) + r4((weight_rows + 2) * NO))
 
 
+def warp_max_nd(NO: int, weight_rows: int) -> int:
+    """The widest row one walker (warp) of K1, K3 or K5 holds: the largest nd whose
+    ``warp_smem_bytes`` fits ``ROW_SMEM_BYTES``."""
+    r4 = lambda n: (n + 3) // 4 * 4
+    return (ROW_SMEM_BYTES // 4 - r4((weight_rows + 2) * NO)) // 4 * 4
+
+
 def walkers_per_block(nd: int, NO: int, weight_rows: int) -> int:
-    """The walkers (warps) a block of K1 or K3 holds: the largest count up to
+    """The walkers (warps) a block of K1, K3 or K5 holds: the largest count up to
     ``WALKERS_MAX`` whose shared memory fits ``ROW_SMEM_BYTES``.
 
     ``weight_rows`` as in ``warp_smem_bytes``.  Raises ``ValueError`` where
@@ -251,6 +259,36 @@ def _tent_w(tc, q):
     return torch.clamp(torch.minimum(left, right), 0.0, 1.0)
 
 
+def _one_cpu_thread(fn):
+    """Run a plain version on one CPU thread when its first argument lies on the CPU.
+
+    ``torch.exp`` splits even a small tensor into one chunk per intra-op thread
+    (16,384 elements on 8 threads: chunks of 2,048).  On the CPU, under a loaded
+    ``pytest -n`` worker, the chunk that an intra-op worker thread computed in
+    the plain spectrum block has come back with a relative error of up to
+    1.5e-4 on one call and correct on the next with the same tensors (every
+    value of the last of 8 chunks; every other intermediate, the product
+    included, kept its bits).  The plain versions
+    stand under every kernel gate, so they run on the calling thread alone and
+    give the same bits for the same inputs whatever the thread count.  CUDA
+    tensors run as they are.
+    """
+
+    @functools.wraps(fn)
+    def pinned(*args, **kwargs):
+        if args[0].device.type != "cpu":
+            return fn(*args, **kwargs)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.set_num_threads(threads)
+
+    return pinned
+
+
+@_one_cpu_thread
 def _spectrum_block(Wcomb, av, D, kd, data, inv_err, VpinvT, VT, med_data, iters,
                     renorm=True, recip=0, fleet_stat=None, noexp=False):
     """K2: model, extinction, median match, continuum renorm, chi^2 ([B, 1]).
@@ -261,6 +299,7 @@ def _spectrum_block(Wcomb, av, D, kd, data, inv_err, VpinvT, VT, med_data, iters
     K3); with ``fleet_stat = (r1, r2, inv_n)`` the median takes those ranks
     and the chi^2 is ``sum * inv_n`` (K4, K5).  ``noexp`` (the experiment S4
     only) swaps the extinction exp for the linear term ``1 + LN10_04*av*kd``.
+    On the CPU it runs on one thread (``_one_cpu_thread``).
     """
     model = Wcomb @ D
     ext = LN10_04 * av * kd[None, :]
@@ -295,11 +334,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # K1 and K3 take their walkers per block last, before the stream
+    # K1, K3 and K5 take their walkers per block last, before the stream
     "log_posterior_fused_launch": [_P] * 20 + [_I] * 14 + [_F] * 3 + [_I] + [_P],
     "spectrum_chi2_launch": [_P] * 10 + [_I] * 7 + [_P],
     "spectrum_chi2_fleet_launch": [_P] * 11 + [_I] * 6 + [_P],
-    "log_posterior_fleet_fused_launch": [_P] * 21 + [_I] * 15 + [_F] * 2 + [_P],
+    "log_posterior_fleet_fused_launch": [_P] * 21 + [_I] * 15 + [_F] * 2 + [_I] + [_P],
     # the segmented large-nd lane (ops.spec_segmented)
     "model_extinct_launch": [_P] * 5 + [_I] * 3 + [_P],
     "median_kary_launch": [_P] * 3 + [_I] * 4 + [_P],
@@ -493,6 +532,7 @@ def log_posterior_fused_reference(p, tgt):
 ALL_SECTIONS = (True, True, True, True)
 
 
+@_one_cpu_thread
 def _posterior_plain(p, cfg, t, tmin, tmax, med_data, spec_scale, iters, recip, fleet_stat=None,
                      sections=ALL_SECTIONS):
     """The posterior kernels' arithmetic for walkers ``p`` [B, ndim] of one target.
@@ -778,10 +818,24 @@ def log_posterior_fleet_fused(params, fleet):
     np_true) weights.  Requires ``n_contrast > 0`` and ``n_phot > 0`` (the
     dispatch in ``inference.fleet`` checks).
     """
-    iters, _, recip = resolve_dials(fleet)
+    resolve_dials(fleet)
     if params.device.type == "cpu":
         return log_posterior_fleet_fused_reference(params, fleet)
     _require_cuda(params, "log_posterior_fleet_fused")
+    out, args = fleet_posterior_launch_args(params, fleet)
+    if args:
+        _launch("log_posterior_fleet_fused_launch", "log_posterior_fleet_fused", *args,
+                _stream(params.device))
+    return out
+
+
+def fleet_posterior_launch_args(params, fleet):
+    """(out, args) of K5 over the fleet walkers ``params`` [ntgt, nw, ndim] on the
+    fleet's tables: ``out`` the [ntgt, nw] result, ``args`` the launch arguments
+    up to the walkers per block (the stream follows), None when there are no
+    walkers.  The kernel flattens the walkers to [ntgt * nw] and gives a block
+    ``walkers_per_block`` of them, so a block may span two targets."""
+    iters, _, recip = resolve_dials(fleet)
     dev = params.device
     t = fleet_kernel_tables(fleet)
     ntgt, nw, ndim = params.shape
@@ -803,13 +857,12 @@ def log_posterior_fleet_fused(params, fleet):
               "pobs": (4, npf), "prior": (2, ndim)}
     for name, shape in tables.items():
         _check(t[name], name, dev, (ntgt,) + shape)
+    wpb = walkers_per_block(nd, NO, 1 + fleet.nspec)
     out = torch.empty((ntgt, nw), dtype=_F32, device=dev)
     if ntgt * nw == 0:
-        return out
-    _launch("log_posterior_fleet_fused_launch", "log_posterior_fleet_fused",
-            t["scal"].data_ptr(), t["ranks"].data_ptr(), params.data_ptr(),
-            *(t[name].data_ptr() for name in tables), out.data_ptr(),
-            ntgt, nw, ndim, NO, nd, nm, nav, nc, npf, fleet.nspec, int(fleet.fit_plx),
-            int(fleet.dist_fit), int(fleet.rad_prior), iters, recip,
-            float(fleet.spectrum_weight), float(fleet.rad_sigma_frac), _stream(dev))
-    return out
+        return out, None
+    return out, (t["scal"].data_ptr(), t["ranks"].data_ptr(), params.data_ptr(),
+                 *(t[name].data_ptr() for name in tables), out.data_ptr(),
+                 ntgt, nw, ndim, NO, nd, nm, nav, nc, npf, fleet.nspec, int(fleet.fit_plx),
+                 int(fleet.dist_fit), int(fleet.rad_prior), iters, recip,
+                 float(fleet.spectrum_weight), float(fleet.rad_sigma_frac), wpb)

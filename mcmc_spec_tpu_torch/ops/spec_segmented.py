@@ -9,7 +9,9 @@ device memory, in four kernels hand-written in CUDA C++ for ``sm_90a``
 * ``model_extinct`` (K6, ``csrc/model_extinct.cu``): ``Wcomb @ D`` with CCM89
   extinction, tiled over (walkers, nd) and written once;
 * ``median_nonneg`` (K7, ``csrc/median_kary.cu``): the exact or fast rank
-  median by a k-ary count search over the bit pattern, one block per row;
+  median of the k-ary count search over the bit pattern, computed by a
+  histogram select (one pass over the row at the production dial, three
+  exact), one block per row;
 * ``renorm_partials`` (K8, ``csrc/segmented_stats.cu``): the continuum
   projection partials ``[NW, 3]``;
 * ``resid_chi2`` (K9, ``csrc/segmented_stats.cu``): the chi^2 residual sum.
@@ -35,6 +37,7 @@ from mcmc_spec_tpu_torch.ops.cuda_kernels import (
     _check,
     _div,
     _launch,
+    _one_cpu_thread,
     _require_cuda,
     _require_dials,
     _stream,
@@ -55,8 +58,10 @@ def _exact(iters) -> bool:
 # K6: model with extinction
 
 
+@_one_cpu_thread
 def model_extinct_reference(Wcomb, av, D_flat, ext_k_data):
-    """Plain PyTorch version of ``model_extinct``: [NW, nd] float32."""
+    """Plain PyTorch version of ``model_extinct``: [NW, nd] float32 (on the CPU on one
+    thread, as ``cuda_kernels._spectrum_block``)."""
     f = lambda x: x.to(_F32)
     model = f(Wcomb) @ f(D_flat)
     av = f(av)[:, None]

@@ -26,7 +26,7 @@ SOURCES = ("log_posterior_fused.cu", "spectrum_chi2.cu", "spectrum_chi2_fleet.cu
            "posterior_transposed.cu", "median_adaptive.cu", "median_packed.cu",
            "spectrum_overlap.cu", "fleet_grid_order.cu", "launch_probe.cu")
 HEADERS = ("block_common.cuh", "spectrum_block.cuh", "posterior_body.cuh",
-           "spectrum_warp.cuh")
+           "spectrum_warp.cuh", "posterior_warp.cuh")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 # no --use_fast_math: the tolerances assume libm expf/logf and true division.
 # -Xptxas -v writes each kernel's registers and shared memory to the build log.

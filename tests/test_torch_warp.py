@@ -63,16 +63,19 @@ def test_walkers_per_block_raises_where_one_walker_does_not_fit(rows):
 
 def test_warp_smem_bytes_mirrors_the_header():
     """The Python size is the header's ``warp_smem_floats`` times 4, and the header
-    and both kernels are part of the build."""
+    and the three kernels that size their blocks with it (K1, K3, K5) are part of
+    the build."""
     src = (cuda_build.CSRC / "spectrum_warp.cuh").read_text()
     body = re.search(r"warp_smem_floats\(int nd, int NO, int weight_rows\) \{\s*return ([^;]+);",
                      src)
     assert body and body.group(1) == "round4(nd) + round4((weight_rows + 2) * NO)"
     assert "spectrum_warp.cuh" in cuda_build.HEADERS
-    for kernel in ("log_posterior_fused.cu", "spectrum_chi2.cu"):
+    for kernel in ("log_posterior_fused.cu", "spectrum_chi2.cu", "log_posterior_fleet_fused.cu"):
+        assert kernel in cuda_build.SOURCES
         assert '#include "spectrum_warp.cuh"' in (cuda_build.CSRC / kernel).read_text()
     assert ck._SIGNATURES["log_posterior_fused_launch"][-2] is ck._I
     assert ck._SIGNATURES["spectrum_chi2_launch"][-2] is ck._I
+    assert ck._SIGNATURES["log_posterior_fleet_fused_launch"][-2] is ck._I
 
 
 MATMUL_DIAL3_RTOL = 3e-4  # the JAX docstring's figure for dial 3 (pallas_kernels._dot_f32)
