@@ -10,7 +10,8 @@ Phases, each of which exits non-zero on failure:
 1. device: a CUDA card is required; prints its name and power limit;
 2. build: compiles the kernels of ``mcmc_spec_tpu_torch/csrc`` with nvcc;
 3. kernels vs plain: the walkers per block and ptxas lines (no barrier) of
-   the one-warp-per-walker kernels K1, K3 and K5, and K7's (no spill); the
+   the one-warp-per-walker kernels K1, K3, K4 and K5, and K6's and K7's (no
+   spill); the
    fused-posterior (K1) and spectrum-chi^2 (K3) kernels against their plain
    PyTorch versions on the card at both dial sets: 16,384 + 5 walkers on the
    bench target, three small targets, and nd = 1,791 and 4,096 with a ragged
@@ -21,17 +22,21 @@ Phases, each of which exits non-zero on failure:
    production and the exact dials;
 6. fleet: nine ragged koi2298-scale targets (nd 1792 ... 1408, 2 or 1
    contrasts) padded to (1792, 2) and stacked, 4,096 walkers each: the fleet
-   spectrum-chi^2 (K4) and fused fleet posterior (K5, one warp per walker of
-   the flattened fleet, so blocks span targets) kernels against their plain
-   versions and K5 against K1 on the unpadded targets, then
+   spectrum-chi^2 (K4) and fused fleet posterior (K5) kernels, both one warp
+   per walker of the flattened fleet, so blocks span targets, against their
+   plain versions and K5 against K1 on the unpadded targets; a half-step of
+   K4 timed beside K4 v1's body (S6 ``target_major``); then
    ``run_fleet_ensemble`` (16 warm-up + 64 timed steps) on the composed
    default (K4) and with ``MCMC_SPEC_FUSED_EVAL=1`` (K5), with launch counts
    and the device busy share under ``torch.profiler``;
-7. large nd: the segmented lane (K6 model with extinction, K7 k-ary median
-   by a histogram select, K8 renorm partials, K9 chi^2 residual) on the bench
-   target at nd = 65,536 (the JAX package's ``largend`` cell) and 131,072:
-   each kernel and the composition against their plain versions (K7 bit for
-   bit) at 1,024 + 5 walkers, again at the untileable odd nd = 65,535; K7 bit
+7. large nd: the segmented lane (K6 model with extinction over a shared D
+   tile and each walker's non-zero weights, K7 k-ary median by a histogram
+   select, K8 renorm partials, K9 chi^2 residual) on the bench target at nd =
+   65,536 (the JAX package's ``largend`` cell) and 131,072: each kernel and
+   the composition against their plain versions (K7 bit for bit) at 1,024 +
+   5 walkers, again at the untileable odd nd = 65,535; K6 also at nd =
+   4,096 and 131,072 and on 257 walkers with NO = 300 (rows past the staged
+   ones from device memory, a dense and a NaN-weighted walker); K7 bit
    for bit on 1,024 real rows and its edge rows (negative and NaN patterns,
    zeros, constant and tied rows, one bin holding 90 %, the 1e30 sentinel
    above odd and even counts) at nd = 65,536, 65,535, 131,072 and 4,096 and
@@ -39,9 +44,11 @@ Phases, each of which exits non-zero on failure:
    the dispatch switches lanes, the two-stage fit at nd = 65,536 through
    ``log_posterior_batch`` and ``optimizer_chi2_batch`` (K7's launches split
    into the annealer's exact and stage 2's fast medians), the throughput of
-   2,048 walkers (16 warm-up + 128 timed steps) with K7's share of the
-   device time, K7's fast, exact and constant-row times, and a crossover of
-   the lanes at 1,024 walkers from nd = 4,096 to 65,536;
+   2,048 walkers (16 warm-up + 128 timed steps) with K6's and K7's shares of
+   the device time, K7's fast, exact and constant-row times, K6 beside
+   ``torch.matmul(Wcomb, D)`` (the product alone: a yardstick for the row
+   build) and a ``fill_`` of the model's size (the write alone), and a
+   crossover of the lanes at 1,024 walkers from nd = 4,096 to 65,536;
 8. experiments: the cost-attribution kernels of ``mcmc_spec_tpu_torch.scripts``
    against their plain versions on the card (S10 multiply chains and S11 row
    median bit for bit, S11 also against ``torch.kthvalue``; S4 spectrum with
@@ -58,9 +65,11 @@ Phases, each of which exits non-zero on failure:
    on the synthetic and the production blend weights, ``stagger2``/``4`` bit
    for bit against ``baseline`` and ``baseline`` against S4 at recip 2; then
    the four experiments' ``main()`` at full size with launch counts;
-10. fleet order and launch probes: S6 (K4's body under an explicit grid order)
-   on the ragged fleet of phase 6, both orders at both dial sets, bit for bit
-   against K4 and within the gate of its plain version; S1-S3 (trivial
+10. fleet order and launch probes: S6 (K4 v1's body under an explicit grid
+   order) on the ragged fleet of phase 6, both orders at both dial sets: bit
+   for bit each other, each within the gate of its plain version, and K4 v2
+   within the gate of ``target_major`` (the bodies sum in another order), then
+   K4 v2 and both orders timed in turns; S1-S3 (trivial
    kernels with K1's operands: ``trivial_probe``, ``bisect_probe``,
    ``bisect2_probe``) against their plain versions on the scripts' own
    numpy-seeded inputs at full size, every configuration; then the four
@@ -82,7 +91,8 @@ multiply chains of S10 count one operation per multiply and per add, so their
 bound holds them against 67 TFLOP/s, twice the rate of one multiply per FP32
 lane per clock (S10 measures the latter).
 
-The line before the last is the kernel report (JSON, twenty kernels); the last line is
+The phases' wall times are printed with the summary.  The line before the last
+is the kernel report (JSON, twenty kernels); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -318,9 +328,10 @@ def check_k1(name, tgt, P, max_outside):
 
 
 def warp_kernels_report(tgt):
-    """K1, K3 and K5 run one warp per walker: print each kernel's walkers per block at the
-    bench shape (K5's fleet is padded to it) and at LARGE_ND, and its ptxas line, which
-    must show no barrier; then K7's ptxas line, which must show no spill."""
+    """K1, K3, K4 and K5 run one warp per walker: print each kernel's walkers per block at
+    the bench shape (K4's and K5's fleet is padded to it) and at LARGE_ND, and its ptxas
+    line, which must show no barrier; then K6's and K7's ptxas lines, which must show no
+    spill."""
     from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
     from mcmc_spec_tpu_torch.ops import spec_segmented as seg
     from mcmc_spec_tpu_torch.runtime import compare_builds, cuda_build
@@ -329,6 +340,7 @@ def warp_kernels_report(tgt):
     nT, nG, nd = tgt.D.shape
     for name, kernel, weight_rows in (("K1", "log_posterior_fused_kernel", 1 + tgt.nspec),
                                       ("K3", "spectrum_chi2_kernel", 0),
+                                      ("K4", "spectrum_chi2_fleet_kernel", 0),
                                       ("K5", "log_posterior_fleet_fused_kernel", 1 + tgt.nspec)):
         line = next(v for k, v in lines.items() if kernel in k)
         wpb = {n: ck.walkers_per_block(n, nT * nG, weight_rows) for n in (nd, seg.LARGE_ND)}
@@ -338,11 +350,13 @@ def warp_kernels_report(tgt):
               + f"; ptxas: {line}")
         require("used 0 barriers" in line, f"{name}: ptxas reports a barrier: {line}")
     log = cuda_build.library_path().with_suffix(".log").read_text().splitlines()
-    key = next(k for k in lines if "median_kary_kernel" in k)
-    props = next(log[i + 1].strip() for i, line in enumerate(log)
-                 if f"Function properties for {key}" in line)
-    print(f"[K7 histogram select] ptxas: {lines[key]}; {props}")
-    require(" 0 bytes spill stores" in props, f"K7 spills registers: {props}")
+    for name, kernel in (("K6 shared D tile", "model_extinct_kernel"),
+                         ("K7 histogram select", "median_kary_kernel")):
+        key = next(k for k in lines if kernel in k)
+        props = next(log[i + 1].strip() for i, line in enumerate(log)
+                     if f"Function properties for {key}" in line)
+        print(f"[{name}] ptxas: {lines[key]}; {props}")
+        require(" 0 bytes spill stores" in props, f"{name} spills registers: {props}")
 
 
 def check_k3(name, tgt, P, max_outside):
@@ -616,6 +630,7 @@ def fleet_run(fleet, coords, dev, fused):
 def fleet_phase(dev):
     from mcmc_spec_tpu_torch.bench_target import init_walker_batch
     from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.scripts import try_fleet_grid_order as s6
 
     t0 = time.perf_counter()
     fleet, singles, truth = build_fleet(dev)
@@ -662,6 +677,13 @@ def fleet_phase(dev):
         print(f"[time {name} production] one half-step, {NTGT} x {NW_FLEET // 2} walkers: kernel "
               f"{times[k][0]:.4f} ms, plain {times[k][1]:.4f} ms, bound {bounds[k][0]:.5f} ms "
               f"({bounds[k][1]})")
+    # K4 v1's body, one block per walker, on the same half-step: S6 in K4 v1's order
+    v1 = cuda_ms(lambda: s6.spectrum_chi2_fleet_2d(Wh, avh, prod, "target_major"))
+    alone = fmt_ms(device_ms(lambda: ck.spectrum_chi2_fleet(Wh, avh, prod),
+                             "spectrum_chi2_fleet_kernel"))
+    print(f"[time K4 production] one half-step: v2 (one warp per walker) {times['k4'][0]:.4f} ms, "
+          f"v1's body (S6 target_major) {v1:.4f} ms, {v1 / times['k4'][0]:.2f}x; v2 alone on the "
+          f"device {alone}")
 
     composed = fleet_run(prod, cloud, dev, fused=False)
     fused = fleet_run(prod, cloud, dev, fused=True)
@@ -774,6 +796,37 @@ def check_lane(name, tgt, P, dials, max_outside, eager):
     return errs
 
 
+def check_k6(name, Wcomb, av, D, kd):
+    """K6 against its plain version on every element (the gate); returns the max abs error."""
+    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
+
+    got = seg.model_extinct(Wcomb, av, D, kd)
+    torch.cuda.synchronize()
+    outside, rel, err = compare(got, seg.model_extinct_reference(Wcomb, av, D, kd))
+    (NW, NO), nd = Wcomb.shape, D.shape[1]
+    print(f"[K6 {name}] {NW} walkers x nd={nd}, NO={NO} ({seg.model_tile_rows(NO)} rows staged): "
+          f"{outside} walkers outside tolerance, max rel err {rel:.3e}, max abs err {err:.3e}")
+    require(outside == 0, f"K6 {name}: {outside} walkers outside tolerance")
+    return err
+
+
+def k6_wide_grid_inputs(dev, NW=257, NO=300, nd=4095, seed=9):
+    """K6's inputs past one block's staged rows: NO = 300 grid points (226 staged),
+    numpy-seeded: 8 non-zero weights a walker at random grid points, av <= 0 on every
+    fifth walker, one walker dense over all NO, one with a NaN weight."""
+    rng = np.random.default_rng(seed)
+    W = np.zeros((NW, NO), np.float32)
+    for w in range(NW):
+        W[w, rng.choice(NO, 8, replace=False)] = rng.uniform(0.05, 1.0, 8)
+    W[1] = rng.uniform(0.0, 0.02, NO)
+    W[2, 250] = np.nan
+    av = rng.uniform(0.0, 2.0, NW).astype(np.float32)
+    av[::5] = 0.0
+    D = rng.uniform(0.1, 5.0, (NO, nd)).astype(np.float32)
+    kd = rng.uniform(0.5, 3.0, nd).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(dev) for x in (W, av, D, kd))
+
+
 def k7_edge_rows(real):
     """K7's edge rows beside a real model row ``real`` [nd] (float32 on the card):
     ([rows, nd] float32, [rows] int32 true counts, names).  Zeros, a constant row and
@@ -860,6 +913,7 @@ def check_lane_boundary(dev):
     tgt, truth = largend_target(dev, seg.LARGE_ND)
     P = torch.cat([init_walker_batch(tgt, truth, NW_LARGE, seed=3), edge_walkers(truth, tgt)])
     ops = lane_operands(tgt, P)
+    check_k6(f"nd={seg.LARGE_ND}", *ops[:4])
     check_k7(f"nd={seg.LARGE_ND}", lane_model(tgt, P[:NW_LARGE]), tgt.n_data_true)
     for renorm in (True, False):
         got = seg.spectrum_chi2_segmented(*ops, renorm=renorm, **dial_kwargs(EXACT))
@@ -924,7 +978,10 @@ def largend_fit(tgt, truth, dev):
 def lane_kernel_times(tgt, P, dials, plain=False):
     """CUDA-event ms of K6-K9 alone on walkers ``P`` (renorm on).  With ``plain``:
     ({name: (kernel ms, plain ms)}, {name: library ms}, {name: bound}, K7's other times
-    {"exact": the exact median, "constant 14"/"constant 31": rows of one value})."""
+    {"exact": the exact median, "constant 14"/"constant 31": rows of one value}, K6's
+    yardsticks {"matmul": ``torch.matmul(Wcomb, D)``, the product without the extinction,
+    "fill": ``fill_`` of a model-sized buffer, the write alone}; neither is a library call
+    for K6)."""
     from mcmc_spec_tpu_torch.ops import spec_segmented as seg
 
     Wcomb, av, D, kd, data, err, V, Vpinv, med_data, n_true = lane_operands(tgt, P)
@@ -957,6 +1014,9 @@ def lane_kernel_times(tgt, P, dials, plain=False):
     k7 = {"exact": cuda_ms(lambda: seg.median_nonneg(model, n_true, 31)),
           "constant 14": cuda_ms(lambda: seg.median_nonneg(const, n_true, 14)),
           "constant 31": cuda_ms(lambda: seg.median_nonneg(const, n_true, 31))}
+    buf = torch.empty_like(model)
+    yard = {"matmul": cuda_ms(lambda: torch.matmul(Wcomb, D)),
+            "fill": cuda_ms(lambda: buf.fill_(1.0))}
     inv_err, VT = 1.0 / err, V.T.contiguous()
     bounds = {
         "model_extinct": bound(nbytes(Wcomb, av, D, kd, model),
@@ -969,7 +1029,7 @@ def lane_kernel_times(tgt, P, dials, plain=False):
         # the scale, the fit (a multiply and two FMAs), a divide, the residual, its square sum
         "resid_chi2": bound(nbytes(model, scale, coeffs, data, inv_err, VT, med), 11 * NW * nd),
     }
-    return out, library, bounds, k7
+    return out, library, bounds, k7, yard
 
 
 def largend_throughput(dev, targets):
@@ -1010,15 +1070,19 @@ def largend_throughput(dev, targets):
                     lambda: run_ensemble(state, logp, 4, thin=4))
                 share = ("not measured (the profiler reported no device time)" if busy is None
                          else f"{busy:.3f}, {n_kernels / 4:.0f} kernel launches per step")
-                k7 = sum(v for k, v in every.items() if "median_kary_kernel" in k)
                 lane = sum(v for k, v in every.items()
                            if any(n in k for n in LANE_KERNEL_NAMES))
-                k7_share = (f"K7 {k7:.4f} ms of {lane:.4f} ms in the lane's four kernels "
-                            f"({k7 / lane:.3f}), of {sum(every.values()):.4f} ms on the device "
-                            f"({k7 / sum(every.values()):.3f})" if lane > 0 else "not measured")
+                shares = []
+                for kname, kernel in (("K6", "model_extinct_kernel"),
+                                      ("K7", "median_kary_kernel")):
+                    kt = sum(v for k, v in every.items() if kernel in k)
+                    shares.append(f"{kname} {kt:.4f} ms of {lane:.4f} ms in the lane's four "
+                                  f"kernels ({kt / lane:.3f}), of {sum(every.values()):.4f} ms "
+                                  f"on the device ({kt / sum(every.values()):.3f})"
+                                  if lane > 0 else f"{kname} not measured")
                 print(f"[largend throughput nd={nd} {label}] device busy share under "
                       f"torch.profiler (4 steps): {share}; top kernels (ms): "
-                      f"{[(k, round(v, 4)) for k, v in top]}; {k7_share}")
+                      f"{[(k, round(v, 4)) for k, v in top]}; {'; '.join(shares)}")
     return rates
 
 
@@ -1085,13 +1149,17 @@ def largend_checks(dev):
                int(PROD_MAX_OUTSIDE_FRAC * NW_LARGE), eager=False)
     check_k7(f"nd={ND_ODD}", lane_model(odd, Podd[:NW_LARGE]), odd.n_data_true)
     wide, wide_truth = largend_target(dev, ND_WIDE)
-    check_k7(f"nd={ND_WIDE}", lane_model(wide, init_walker_batch(wide, wide_truth, NW_LARGE)),
-             wide.n_data_true)
+    Pw = torch.cat([init_walker_batch(wide, wide_truth, NW_LARGE), edge_walkers(wide_truth, wide)])
+    check_k6(f"nd={ND_WIDE}", *lane_operands(wide, Pw)[:4])
+    check_k7(f"nd={ND_WIDE}", lane_model(wide, Pw[:NW_LARGE]), wide.n_data_true)
+    check_k6("past the staged rows", *k6_wide_grid_inputs(dev))
     check_lane_boundary(dev)
     return tgt, truth, P, errs, (wide, wide_truth)
 
 
 def largend_phase(dev):
+    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
+
     tgt, truth, P, errs, wide = largend_checks(dev)
     t0 = time.perf_counter()
     launches, stage1_s, k7_modes = largend_fit(tgt, truth, dev)
@@ -1099,13 +1167,22 @@ def largend_phase(dev):
     rates = largend_throughput(dev, {ND_FIT: (tgt, truth), ND_WIDE: wide})
 
     # the kernel report: one half-step at nd = ND_FIT, production dials
-    times, library, bounds, k7 = lane_kernel_times(dataclasses.replace(tgt, **PROD),
-                                                   P[:NW_LARGE].contiguous(), PROD, plain=True)
+    times, library, bounds, k7, yard = lane_kernel_times(
+        dataclasses.replace(tgt, **PROD), P[:NW_LARGE].contiguous(), PROD, plain=True)
+    ops = lane_operands(dataclasses.replace(tgt, **PROD), P[:NW_LARGE].contiguous())
     for k, (ms, plain_ms) in times.items():
         lib = library.get(k)
         print(f"[time {k} production] {NW_LARGE} walkers x nd={ND_FIT}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bounds[k][0]:.5f} ms ({bounds[k][1]})"
               + (f", library (torch.kthvalue) {lib:.4f} ms" if lib is not None else ""))
+    k6_alone = fmt_ms(device_ms(lambda: seg.model_extinct(*ops[:4]), "model_extinct_kernel"))
+    print(f"[time model_extinct] {NW_LARGE} walkers x nd={ND_FIT}: kernel "
+          f"{times['model_extinct'][0]:.4f} ms (alone on the device {k6_alone}); "
+          f"torch.matmul(Wcomb, D) alone, the same {4 * NW_LARGE * ND_FIT / 1e6:.0f} MB written "
+          f"without the extinction (a yardstick for the row build) {yard['matmul']:.4f} ms; the "
+          f"write alone (fill_ of a model-sized buffer) {yard['fill']:.4f} ms; bound "
+          f"{bounds['model_extinct'][0]:.5f} ms: the kernel at "
+          f"{bounds['model_extinct'][0] / times['model_extinct'][0]:.3f} of it")
     print(f"[time median_nonneg] {NW_LARGE} walkers x nd={ND_FIT}: fast (iters 14) "
           f"{times['median_nonneg'][0]:.4f} ms, exact {k7['exact']:.4f} ms; rows of one value "
           f"{k7['constant 14']:.4f} ms fast, {k7['constant 31']:.4f} ms exact; bound "
@@ -1113,9 +1190,6 @@ def largend_phase(dev):
           f"{bounds['median_nonneg'][0] / times['median_nonneg'][0]:.3f} of it, exact at "
           f"{bounds['median_nonneg'][0] / k7['exact']:.3f}")
     # K10, the composition of K6-K9, on the same half-step
-    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
-
-    ops = lane_operands(dataclasses.replace(tgt, **PROD), P[:NW_LARGE].contiguous())
     k10 = (cuda_ms(lambda: seg.spectrum_chi2_segmented(*ops, **dial_kwargs(PROD))),
            cuda_ms(lambda: seg.spectrum_chi2_segmented_reference(*ops, **dial_kwargs(PROD)),
                    reps=5))
@@ -1125,7 +1199,7 @@ def largend_phase(dev):
     cross = largend_crossover(dev, {ND_FIT: (tgt, truth)})
     return {"errs": errs, "launches": launches, "stage1_s": stage1_s, "rates": rates,
             "times": times, "library": library, "bounds": bounds, "crossover": cross, "k10": k10,
-            "k7": k7, "k7_modes": k7_modes}
+            "k7": k7, "k7_modes": k7_modes, "yardsticks": yard}
 
 
 def experiments_checks(dev, tgt, truth):
@@ -1468,8 +1542,9 @@ def redesign_phase(dev, tgt, truth):
 
 
 def probes_checks(dev):
-    """S6 against K4 (bit for bit) and its plain version on the ragged fleet of phase 6,
-    S1-S3 against their plain versions at full size, every variant.  Returns the max abs
+    """S6's two orders against each other (bit for bit) and their plain version, and K4
+    v2 against S6 ``target_major`` (K4 v1's body), on the ragged fleet of phase 6; S1-S3
+    against their plain versions at full size, every variant.  Returns the max abs
     errors, the report's times (graph and eager), bounds and library times."""
     from mcmc_spec_tpu_torch.bench_target import init_walker_batch
     from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
@@ -1494,21 +1569,30 @@ def probes_checks(dev):
                                   ("production dials (14, 3, 2)", PROD,
                                    int(PROD_MAX_OUTSIDE_FRAC * NTGT * NW_FLEET))):
         fl = dataclasses.replace(fleet, **dials)
-        k4 = ck.spectrum_chi2_fleet(W, av, fl)
         ref = s6.spectrum_chi2_fleet_2d_reference(W, av, fl)
-        for order in s6.ORDERS:
-            got = s6.spectrum_chi2_fleet_2d(W, av, fl, order)
-            torch.cuda.synchronize()
-            same = int((bits(got) == bits(k4)).sum())
-            outside, rel, err = compare(got.flatten(), ref.flatten())
+        got = {order: s6.spectrum_chi2_fleet_2d(W, av, fl, order) for order in s6.ORDERS}
+        torch.cuda.synchronize()
+        for order, out in got.items():
+            same = int((bits(out) == bits(got["target_major"])).sum())
+            outside, rel, err = compare(out.flatten(), ref.flatten())
             if dials is EXACT:
                 errs["spectrum_chi2_fleet_2d"] = max(errs["spectrum_chi2_fleet_2d"], err)
             print(f"[S6 spectrum_chi2_fleet_2d {order} {label}] {n} walkers: {same} "
-                  f"bit-identical to K4; {outside} outside tolerance of the plain version "
-                  f"(allowed {allowed}), max rel err {rel:.3e}, max abs err {err:.3e}")
-            require(same == n, f"S6 {order} {label}: {n - same} walkers differ from K4")
+                  f"bit-identical to target_major; {outside} outside tolerance of the plain "
+                  f"version (allowed {allowed}), max rel err {rel:.3e}, max abs err {err:.3e}")
+            require(same == n, f"S6 {order} {label}: {n - same} walkers differ from "
+                    "target_major")
             require(outside <= allowed, f"S6 {order} {label}: {outside} walkers outside "
                     "tolerance")
+        # K4 v2 sums in another order than v1's body, so the gate and not the bits
+        k4 = ck.spectrum_chi2_fleet(W, av, fl)
+        torch.cuda.synchronize()
+        outside, rel, err = compare(k4.flatten(), got["target_major"].flatten())
+        print(f"[K4 v2 vs S6 target_major (K4 v1's body) {label}] {n} walkers: {outside} "
+              f"outside tolerance (allowed {allowed}), max rel err {rel:.3e}, max abs err "
+              f"{err:.3e}")
+        require(outside <= allowed, f"K4 v2 vs S6 target_major {label}: {outside} walkers "
+                "outside tolerance")
     # times at production dials on the 9 x 4096 cloud, K4 and the two orders in turns
     prod = dataclasses.replace(fleet, **PROD)
     Wc, avc = fleet_wcomb(cloud, prod), cloud[..., fleet.nspec].contiguous()
@@ -1518,9 +1602,10 @@ def probes_checks(dev):
     for k in list(fns) + list(fns)[::-1]:
         order_ms[k].append(cuda_ms(fns[k]))
     order_ms = {k: min(v) for k, v in order_ms.items()}
-    print(f"[time S6 production] {NTGT} x {NW_FLEET} walkers, in turns K4, target_major, "
-          f"walker_major and back, least of two: " + ", ".join(
-              f"{k} {v:.4f} ms ({100 * (v - order_ms['K4']) / order_ms['K4']:+.2f}% vs K4)"
+    print(f"[time S6 production] {NTGT} x {NW_FLEET} walkers, in turns K4 v2 (one warp per "
+          f"walker), target_major and walker_major (K4 v1's body, one block per walker) and "
+          f"back, least of two: " + ", ".join(
+              f"{k} {v:.4f} ms ({100 * (v - order_ms['K4']) / order_ms['K4']:+.2f}% vs K4 v2)"
               for k, v in order_ms.items()))
     tabs = ck.fleet_kernel_tables(prod)
     nd = fleet.D.shape[-1]
@@ -1649,36 +1734,39 @@ def probes_phase(dev):
 
 
 def main() -> int:
-    dev, smi = device_phase()
-    build_phase()
-    tgt, truth, kres = kernels_phase(dev)
-    launches, stage1_s = fit_phase(tgt, truth, dev)
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    dev, smi = timed("device", device_phase)
+    timed("build", build_phase)
+    tgt, truth, kres = timed("kernels", kernels_phase, dev)
+    launches, stage1_s = timed("fit", fit_phase, tgt, truth, dev)
     k1_ms = {label: kres["times"][("k1", label)][0] for label in ("production", "exact")}
-    rates = throughput_phase(tgt, truth, dev, k1_ms)
-    fres = fleet_phase(dev)
-    t0 = time.perf_counter()
-    lres = largend_phase(dev)
-    largend_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    eres = experiments_phase(dev, tgt, truth)
-    experiments_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rres = redesign_phase(dev, tgt, truth)
-    redesign_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pres = probes_phase(dev)
-    probes_s = time.perf_counter() - t0
+    rates = timed("throughput", throughput_phase, tgt, truth, dev, k1_ms)
+    fres = timed("fleet", fleet_phase, dev)
+    lres = timed("large nd", largend_phase, dev)
+    eres = timed("experiments", experiments_phase, dev, tgt, truth)
+    rres = timed("redesign", redesign_phase, dev, tgt, truth)
+    pres = timed("probes", probes_phase, dev)
+    probes_s = phase_s["probes"]
     print(f"[probes] phase 10 in {probes_s:.1f} s (budget {PROBES_BUDGET_S} s"
           + (")" if probes_s <= PROBES_BUDGET_S else ", OVER BUDGET)"))
     lr = lres["rates"]
     print(f"[summary] {smi}: stage-2 {rates['production']:.1f} evals/s (production dials), "
           f"{rates['exact']:.1f} evals/s (exact dials); stage-1 wall {stage1_s:.2f} s; fleet "
           f"{NTGT} x {NW_FLEET}: composed (K4) {fres['composed']['rate']:.1f} evals/s, "
-          f"fused (K5) {fres['fused']['rate']:.1f} evals/s; large nd phase {largend_s:.1f} s: "
+          f"fused (K5) {fres['fused']['rate']:.1f} evals/s; large nd: "
           + ", ".join(f"nd={nd} {label} {lr[(nd, label)]['rate']:.1f} evals/s"
-                      for nd, label in lr)
-          + f"; experiments phase {experiments_s:.1f} s; redesign phase {redesign_s:.1f} s; "
-          f"probes phase {probes_s:.1f} s")
+                      for nd, label in lr))
+    print(f"[summary] phase wall times (s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f"; total {time.perf_counter() - t_start:.1f}")
     k1_ms_prod, k1_plain_prod = kres["times"][("k1", "production")]
     k3_ms, k3_plain = kres["times"][("k3", NWALK_BENCH // 2)]
     rows = [

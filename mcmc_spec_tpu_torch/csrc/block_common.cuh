@@ -1,5 +1,6 @@
-// Device helpers shared by the one-block-per-walker spectrum body
-// (spectrum_block.cuh, K2, in K1/K3/K4/K5) and the segmented large-nd kernels
+// Device helpers shared by the spectrum bodies (K2: spectrum_block.cuh, one
+// block per walker, in the S-kernels; spectrum_warp.cuh, one warp per walker,
+// in K1/K3/K4/K5) and the segmented large-nd kernels
 // (model_extinct.cu K6, median_kary.cu K7, segmented_stats.cu K8/K9): the
 // block size, NaN-propagating min/max, warp and block reductions, and the
 // magic-seed reciprocal of the continuum-renorm divides

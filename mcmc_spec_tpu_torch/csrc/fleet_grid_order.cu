@@ -1,20 +1,22 @@
-// S6: the fleet spectrum chi^2 (K4's body) under an explicit grid order, the
-// receipt for keeping a target's tables hot across its walker blocks
+// S6: the fleet spectrum chi^2 (K4 v1's body) under an explicit grid order,
+// the receipt for keeping a target's tables hot across its walker blocks
 // (mcmc_spec_tpu_torch/scripts/try_fleet_grid_order.py).
 //
 // Replaces scripts/try_fleet_grid_order.py:spectrum_chi2_fleet_2d, which runs
 // the body of pallas_kernels._spectrum_chi2_fleet_kernel on a 2-D grid
 // (ntgt, walker blocks) with the per-target tables keyed on the target axis
-// alone.  The body here is K4's (spectrum_chi2_fleet.cu), unchanged: one
-// thread block scores one walker, through spectrum_block.cuh with the
-// target's median ranks and chi^2 = sum * (1/n_true), so the result equals
-// K4's bit for bit.  Only the map from block to (target, walker) changes,
-// through the launch argument ``order``:
+// alone.  The body here is K4 v1's, unchanged: one thread block scores one
+// walker, through spectrum_block.cuh with the target's median ranks and
+// chi^2 = sum * (1/n_true).  K4 v2 (spectrum_chi2_fleet.cu) runs one warp per
+// walker and sums in another order, so it agrees with S6 to rounding (the
+// kernel gate), not bit for bit; the two orders agree with each other bit for
+// bit.  Only the map from block to (target, walker) changes, through the
+// launch argument ``order``:
 //
 //   target_major (0): grid (nw, ntgt), blockIdx.y the target.  The script's
-//     2-D grid: a target's walkers are consecutive blocks.  K4's flat grid
-//     (t = b / nw) is already target-major, so on this card this order
-//     repeats K4's schedule.
+//     2-D grid: a target's walkers are consecutive blocks.  K4 v1's flat
+//     grid (t = b / nw) was already target-major, so on this card this order
+//     repeats K4 v1's schedule, and times K4 v1 beside K4 v2.
 //   walker_major (1): a flat grid; block b scores target b % ntgt, walker
 //     b / ntgt, so consecutive blocks alternate targets and no target's
 //     tables are read by a run of neighbouring blocks.
@@ -23,7 +25,7 @@
 // median's count passes, the renorm and the residual, against under 2 MB of
 // walker input; a target's D (56 x 1792 f32, 401 KB) and all nine targets'
 // (3.6 MB) fit the 50 MB L2 many times, so neither order should have to go to
-// device memory for the tables.  A simple, correct first version, as K4 is.
+// device memory for the tables.  A simple, correct first version, as K4 v1 was.
 #include "spectrum_block.cuh"
 
 namespace mcmc_spec {
@@ -43,9 +45,9 @@ __global__ void __launch_bounds__(kThreads)
   float* row = dyn;      // [nd] model row
   float* wc = dyn + nd;  // [NO] this walker's Wcomb
   __shared__ BlockScratch scratch;
-  // from here on K4's code, with its integer widths: b the flat walker index
-  // (int), t the target (size_t); a first version that kept both in size_t
-  // took 34 registers to K4's 32 and ran 5 % slower in either order
+  // from here on K4 v1's code, with its integer widths: b the flat walker
+  // index (int), t the target (size_t); a first version that kept both in
+  // size_t took 34 registers to K4 v1's 32 and ran 5 % slower in either order
   const int tb = order == kTargetMajor ? (int)blockIdx.y : (int)blockIdx.x % ntgt;
   const int b = tb * nw + (order == kTargetMajor ? (int)blockIdx.x : (int)blockIdx.x / ntgt);
   const size_t t = (size_t)tb;

@@ -1,9 +1,8 @@
 // Device helpers and the one-block-per-walker spectrum-statistics body (K2)
-// of the fleet spectrum-chi^2 kernel (spectrum_chi2_fleet.cu, K4) and of the
-// experiments S4, S5, S8, S11 and S12; it was also the body of the fused
-// posterior K1, the spectrum-chi^2 kernel K3 and the fused fleet posterior
-// K5, which now run one warp per walker (spectrum_warp.cuh, sharing SpecStat
-// and the constants below).
+// of the experiments S4, S5, S6, S8, S11 and S12; it was also the body of the
+// fused posterior K1, the spectrum-chi^2 kernel K3, the fleet spectrum-chi^2
+// kernel K4 and the fused fleet posterior K5, which now run one warp per
+// walker (spectrum_warp.cuh, sharing SpecStat and the constants below).
 //
 // Replaces mcmc_spec_tpu/ops/pallas_kernels.py:_spectrum_block (with its
 // helpers _row_order_stat_bits/_row_median_nonneg, _fast_recip/_div and

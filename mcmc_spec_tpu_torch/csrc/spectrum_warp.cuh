@@ -1,12 +1,13 @@
 // The spectrum-statistics body (K2) of the fused posterior K1
-// (log_posterior_fused.cu), the spectrum-chi^2 kernel K3 (spectrum_chi2.cu)
-// and the fused fleet posterior K5 (log_posterior_fleet_fused.cu),
-// redesigned for Hopper: one warp per walker.
+// (log_posterior_fused.cu), the spectrum-chi^2 kernel K3 (spectrum_chi2.cu),
+// the fleet spectrum-chi^2 kernel K4 (spectrum_chi2_fleet.cu) and the fused
+// fleet posterior K5 (log_posterior_fleet_fused.cu), redesigned for Hopper:
+// one warp per walker.
 //
 // Replaces mcmc_spec_tpu/ops/pallas_kernels.py:_spectrum_block (with
-// _row_order_stat_bits/_row_median_nonneg and _div) for K1, K3 and K5; the
-// one-block-per-walker body of spectrum_block.cuh stays in K4 and the
-// experiments S4, S5, S8 and S12, which keep their code.
+// _row_order_stat_bits/_row_median_nonneg and _div) for K1, K3, K4 and K5;
+// the one-block-per-walker body of spectrum_block.cuh stays in the
+// experiments S4, S5, S6, S8 and S12, which keep their code.
 //
 // What bounded the block-per-walker body on an H100 (PERF.md): every pass
 // ended in a block barrier (14 or 31 median passes of two __syncthreads

@@ -77,15 +77,11 @@ def stack_targets(targets: Sequence[PackedTarget]) -> PackedTarget:
 
 
 def _require_row_fits(fleet: PackedTarget, fused: bool) -> None:
-    """Raise unless a fleet kernel's row fits a block's shared memory: for K4 (one
-    block per walker) nd floats and one row of NO blend weights; for K5 (one warp per
-    walker) one warp's row, its 1 + nspec rows of weights and its compact list
-    (``cuda_kernels.warp_max_nd``)."""
+    """Raise unless a fleet kernel's row fits a block's shared memory: both run one
+    warp per walker, which holds its row and its compact list, and for K5 also its 1 +
+    nspec rows of weights (``cuda_kernels.warp_max_nd``)."""
     nT, nG, nd = fleet.D.shape[-3:]
-    if fused:
-        max_nd = cuda_kernels.warp_max_nd(nT * nG, 1 + fleet.nspec)
-    else:
-        max_nd = cuda_kernels.ROW_SMEM_BYTES // 4 - nT * nG
+    max_nd = cuda_kernels.warp_max_nd(nT * nG, 1 + fleet.nspec if fused else 0)
     if nd > max_nd:
         kernel = "log_posterior_fleet_fused (K5)" if fused else "spectrum_chi2_fleet (K4)"
         raise ValueError(

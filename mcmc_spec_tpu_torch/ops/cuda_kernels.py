@@ -11,21 +11,23 @@ Four kernels, hand-written in CUDA C++ for ``sm_90a`` (``csrc/``), built by
   annealer's scoring.
 * ``spectrum_chi2_fleet`` (K4, ``csrc/spectrum_chi2_fleet.cu``) evaluates the
   spectrum block of every walker of a stacked, padded fleet in one launch,
-  one thread block per walker: the fleet's default spectrum term.
+  one warp per walker of the flattened fleet: the fleet's default spectrum
+  term.
 * ``log_posterior_fleet_fused`` (K5, ``csrc/log_posterior_fleet_fused.cu``)
   is K1 for a stacked, padded fleet, one warp per walker of the flattened
   fleet: the fleet's opt-in fused evaluation.
 
 All four compute the spectrum-statistics body K2: the ``Wcomb @ D`` model
 row with extinction, the sort-free radix median, the degree-2 continuum
-renorm and the chi^2.  K1, K3 and K5 run it one warp per walker, over a
-compact list of each walker's non-zero weights (``csrc/spectrum_warp.cuh``);
-K4 one block per walker (``csrc/spectrum_block.cuh``).  K1 and K3 take the
+renorm and the chi^2.  All four run it one warp per walker, over a compact
+list of each walker's non-zero weights (``csrc/spectrum_warp.cuh``); the
+one-block-per-walker body (``csrc/spectrum_block.cuh``) stays in the
+experiment kernels of ``mcmc_spec_tpu_torch.scripts``.  K1 and K3 take the
 median of the whole row and the mean chi^2; K4 and K5 take per-target median
 ranks and ``sum * 1/n_true``, so padded points are inert.  K1 and K5 share
 the warp-per-walker posterior body (``csrc/posterior_warp.cuh``), the
 experiments S8 and S12 the block-per-walker one (``csrc/posterior_body.cuh``).
-``walkers_per_block`` chooses how many walkers a block of K1, K3 or K5
+``walkers_per_block`` chooses how many walkers a block of K1, K3, K4 or K5
 holds.
 
 Beside each kernel is its plain PyTorch version (``*_reference``): f32, the
@@ -73,7 +75,7 @@ LAUNCHES = {"log_posterior_fused": 0, "spectrum_chi2": 0, "spectrum_chi2_fleet":
 # for the kernels' static shared memory: the kernels hold their walkers' model
 # rows of nd floats and blend weights in it
 ROW_SMEM_BYTES = 232448 - 1024
-# walkers (one warp each) a block of K1, K3 or K5 holds at most: kWalkersMax in
+# walkers (one warp each) a block of K1, K3, K4 or K5 holds at most: kWalkersMax in
 # csrc/spectrum_warp.cuh
 WALKERS_MAX = 8
 
@@ -84,10 +86,10 @@ def reset_launches() -> None:
 
 
 def warp_smem_bytes(nd: int, NO: int, weight_rows: int) -> int:
-    """Dynamic shared memory one walker of K1, K3 or K5 holds, in bytes.
+    """Dynamic shared memory one walker of K1, K3, K4 or K5 holds, in bytes.
 
     The model row, ``weight_rows`` rows of NO blend weights (K1 and K5: ``1 +
-    nspec``, Wcomb and the scaled components; K3: 0) and the compact list of
+    nspec``, Wcomb and the scaled components; K3 and K4: 0) and the compact list of
     non-zero weights (NO indices, NO weights), each part padded to 16 bytes:
     ``warp_smem_floats`` in ``csrc/spectrum_warp.cuh``.
     """
@@ -96,14 +98,14 @@ def warp_smem_bytes(nd: int, NO: int, weight_rows: int) -> int:
 
 
 def warp_max_nd(NO: int, weight_rows: int) -> int:
-    """The widest row one walker (warp) of K1, K3 or K5 holds: the largest nd whose
+    """The widest row one walker (warp) of K1, K3, K4 or K5 holds: the largest nd whose
     ``warp_smem_bytes`` fits ``ROW_SMEM_BYTES``."""
     r4 = lambda n: (n + 3) // 4 * 4
     return (ROW_SMEM_BYTES // 4 - r4((weight_rows + 2) * NO)) // 4 * 4
 
 
 def walkers_per_block(nd: int, NO: int, weight_rows: int) -> int:
-    """The walkers (warps) a block of K1, K3 or K5 holds: the largest count up to
+    """The walkers (warps) a block of K1, K3, K4 or K5 holds: the largest count up to
     ``WALKERS_MAX`` whose shared memory fits ``ROW_SMEM_BYTES``.
 
     ``weight_rows`` as in ``warp_smem_bytes``.  Raises ``ValueError`` where
@@ -334,13 +336,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # K1, K3 and K5 take their walkers per block last, before the stream
+    # K1, K3, K4 and K5 take their walkers per block last, before the stream
     "log_posterior_fused_launch": [_P] * 20 + [_I] * 14 + [_F] * 3 + [_I] + [_P],
     "spectrum_chi2_launch": [_P] * 10 + [_I] * 7 + [_P],
-    "spectrum_chi2_fleet_launch": [_P] * 11 + [_I] * 6 + [_P],
+    "spectrum_chi2_fleet_launch": [_P] * 11 + [_I] * 7 + [_P],
     "log_posterior_fleet_fused_launch": [_P] * 21 + [_I] * 15 + [_F] * 2 + [_I] + [_P],
     # the segmented large-nd lane (ops.spec_segmented)
-    "model_extinct_launch": [_P] * 5 + [_I] * 3 + [_P],
+    "model_extinct_launch": [_P] * 5 + [_I] * 4 + [_P],
     "median_kary_launch": [_P] * 3 + [_I] * 4 + [_P],
     "renorm_partials_launch": [_P] * 5 + [_I] * 3 + [_P],
     "resid_chi2_launch": [_P] * 7 + [_I] * 4 + [_P],
@@ -765,10 +767,25 @@ def spectrum_chi2_fleet(Wcomb, av, fleet):
         fleet: the stacked fleet (``inference.fleet.stack_targets``); its
             pack-time dials select the median passes and the reciprocal.
     """
-    iters, _, recip = resolve_dials(fleet)
+    resolve_dials(fleet)
     if Wcomb.device.type == "cpu":
         return spectrum_chi2_fleet_reference(Wcomb, av, fleet)
     _require_cuda(Wcomb, "spectrum_chi2_fleet")
+    out, args = fleet_spectrum_launch_args(Wcomb, av, fleet)
+    if args:
+        _launch("spectrum_chi2_fleet_launch", "spectrum_chi2_fleet", *args,
+                _stream(Wcomb.device))
+    return out
+
+
+def fleet_spectrum_launch_args(Wcomb, av, fleet):
+    """(out, args) of K4 for the blend weights ``Wcomb`` [ntgt, nw, NO] and extinctions
+    ``av`` [ntgt, nw] on the fleet's tables: ``out`` the [ntgt, nw] result, ``args`` the
+    launch arguments up to the walkers per block (the stream follows), None when there
+    are no walkers.  As K5, the kernel flattens the walkers to [ntgt * nw] and gives a
+    block ``walkers_per_block`` of them (K3's body: no weight rows), so a block may span
+    two targets."""
+    iters, _, recip = resolve_dials(fleet)
     dev = Wcomb.device
     t = fleet_kernel_tables(fleet)
     ntgt, nw, NO = Wcomb.shape
@@ -781,15 +798,14 @@ def spectrum_chi2_fleet(Wcomb, av, fleet):
                            (t["scal"], "scal", (ntgt, 5))):
         _check(x, name, dev, shape)
     _check(t["ranks"], "ranks", dev, (ntgt, 2), torch.int32)
+    wpb = walkers_per_block(nd, NO, 0)
     out = torch.empty((ntgt, nw), dtype=_F32, device=dev)
     if ntgt * nw == 0:
-        return out
-    _launch("spectrum_chi2_fleet_launch", "spectrum_chi2_fleet",
-            Wcomb.data_ptr(), av.data_ptr(), t["D"].data_ptr(), t["kd"].data_ptr(),
-            t["data"].data_ptr(), t["inv_err"].data_ptr(), t["VpinvT"].data_ptr(),
-            t["VT"].data_ptr(), t["scal"].data_ptr(), t["ranks"].data_ptr(), out.data_ptr(),
-            ntgt, nw, NO, nd, iters, recip, _stream(dev))
-    return out
+        return out, None
+    return out, (Wcomb.data_ptr(), av.data_ptr(), t["D"].data_ptr(), t["kd"].data_ptr(),
+                 t["data"].data_ptr(), t["inv_err"].data_ptr(), t["VpinvT"].data_ptr(),
+                 t["VT"].data_ptr(), t["scal"].data_ptr(), t["ranks"].data_ptr(),
+                 out.data_ptr(), ntgt, nw, NO, nd, iters, recip, wpb)
 
 
 def log_posterior_fleet_fused_reference(params, fleet):

@@ -7,7 +7,9 @@ device memory, in four kernels hand-written in CUDA C++ for ``sm_90a``
 (``csrc/``), built by ``runtime.cuda_build``:
 
 * ``model_extinct`` (K6, ``csrc/model_extinct.cu``): ``Wcomb @ D`` with CCM89
-  extinction, tiled over (walkers, nd) and written once;
+  extinction, written once: a block stages a tile of D's points in shared
+  memory and serves a chunk of walkers from it, each walker over its
+  non-zero weights;
 * ``median_nonneg`` (K7, ``csrc/median_kary.cu``): the exact or fast rank
   median of the k-ary count search over the bit pattern, computed by a
   histogram select (one pass over the row at the production dial, three
@@ -34,6 +36,7 @@ import torch
 
 from mcmc_spec_tpu_torch.ops.cuda_kernels import (
     LN10_04,
+    ROW_SMEM_BYTES,
     _check,
     _div,
     _launch,
@@ -47,6 +50,9 @@ from mcmc_spec_tpu_torch.ops.cuda_kernels import (
 # this nd the dispatch (inference.batched) takes this lane, as in JAX
 LARGE_ND = 4096
 _F32 = torch.float32
+# K6's tiling (kTileP and kChunkW in csrc/model_extinct.cu): a block stages the rows of
+# D over MODEL_TILE_P points and serves MODEL_CHUNK_W walkers from them
+MODEL_TILE_P, MODEL_CHUNK_W = 256, 128
 
 
 def _exact(iters) -> bool:
@@ -68,6 +74,13 @@ def model_extinct_reference(Wcomb, av, D_flat, ext_k_data):
     trans = torch.where(av > 0, torch.exp(LN10_04 * av * f(ext_k_data)[None, :]),
                         torch.ones((), dtype=_F32, device=model.device))
     return model * trans
+
+
+def model_tile_rows(NO: int) -> int:
+    """The rows of D that a block of K6 stages over its ``MODEL_TILE_P`` points: all NO
+    where they fit ``ROW_SMEM_BYTES`` (56 KB at NO = 56), else as many as fit; the
+    kernel reads the others from device memory where a weight needs them."""
+    return min(NO, ROW_SMEM_BYTES // (4 * MODEL_TILE_P))
 
 
 def model_extinct(Wcomb, av, D_flat, ext_k_data):
@@ -93,7 +106,8 @@ def model_extinct(Wcomb, av, D_flat, ext_k_data):
     if NW * nd == 0:
         return out
     _launch("model_extinct_launch", "model_extinct", Wcomb.data_ptr(), av.data_ptr(),
-            D_flat.data_ptr(), ext_k_data.data_ptr(), out.data_ptr(), NW, NO, nd, _stream(dev))
+            D_flat.data_ptr(), ext_k_data.data_ptr(), out.data_ptr(), NW, NO, nd,
+            model_tile_rows(NO), _stream(dev))
     return out
 
 

@@ -332,7 +332,8 @@ def test_probe_mains_run_on_cpu(capsys):
     assert set(r6) == {"A", "target_major", "walker_major", "C", "D"}
     out = capsys.readouterr().out
     assert "host-clock times of the plain versions, not device times" in out
-    assert "bit-identical to K4: True" in out and "[D] single-target fused (K1)" in out
+    assert "bit-identical to target_major: True" in out and "[D] single-target fused (K1)" in out
+    assert out.count("K4 within the kernel gate of it: True (0 walkers outside") == 2
     assert "(no CUDA counterpart of a zero-scalar prefetch grid spec" in out
     assert "realmix @   1 walkers a block (64 blocks)" in out and "[library] torch.sum" in out
 
