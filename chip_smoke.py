@@ -10,7 +10,7 @@ Phases, each of which exits non-zero on failure:
 1. device: a CUDA card is required; prints its name and power limit;
 2. build: compiles the kernels of ``mcmc_spec_tpu_torch/csrc`` with nvcc;
 3. kernels vs plain: the walkers per block and ptxas lines (no barrier) of
-   the one-warp-per-walker kernels K1, K3, K4 and K5, and K6's and K7's (no
+   the one-warp-per-walker kernels K1, K3, K4 and K5, and K6's to K9's (no
    spill); the
    fused-posterior (K1) and spectrum-chi^2 (K3) kernels against their plain
    PyTorch versions on the card at both dial sets: 16,384 + 5 walkers on the
@@ -31,11 +31,15 @@ Phases, each of which exits non-zero on failure:
    and the device busy share under ``torch.profiler``;
 7. large nd: the segmented lane (K6 model with extinction over a shared D
    tile and each walker's non-zero weights, K7 k-ary median by a histogram
-   select, K8 renorm partials, K9 chi^2 residual) on the bench target at nd =
-   65,536 (the JAX package's ``largend`` cell) and 131,072: each kernel and
-   the composition against their plain versions (K7 bit for bit) at 1,024 +
-   5 walkers, again at the untileable odd nd = 65,535; K6 also at nd =
-   4,096 and 131,072 and on 257 walkers with NO = 300 (rows past the staged
+   select, K8 renorm partials and K9 chi^2 residual over chunks of walkers
+   and segments of the points) on the bench target at nd = 65,536 (the JAX
+   package's ``largend`` cell) and 131,072: each kernel and the composition
+   against their plain versions (K7 bit for bit) at 1,024 + 5 walkers, again
+   at the untileable odd nd = 65,535; K8 and K9 (renorm on and off) also on
+   the last 171 of those walkers (the fit's stage-2 half-step) and at nd =
+   4,096 (there also at recip 1) and 131,072, every call twice and the second
+   bit for bit the first;
+   K6 also at nd = 4,096 and 131,072 and on 257 walkers with NO = 300 (rows past the staged
    ones from device memory, a dense and a NaN-weighted walker); K7 bit
    for bit on 1,024 real rows and its edge rows (negative and NaN patterns,
    zeros, constant and tied rows, one bin holding 90 %, the 1e30 sentinel
@@ -43,9 +47,11 @@ Phases, each of which exits non-zero on failure:
    ``iters`` 31, 14, 15, 30; the composition against K3 at nd = 4,096 where
    the dispatch switches lanes, the two-stage fit at nd = 65,536 through
    ``log_posterior_batch`` and ``optimizer_chi2_batch`` (K7's launches split
-   into the annealer's exact and stage 2's fast medians), the throughput of
-   2,048 walkers (16 warm-up + 128 timed steps) with K6's and K7's shares of
-   the device time, K7's fast, exact and constant-row times, K6 beside
+   into the annealer's exact and stage 2's fast medians, K9's into the
+   annealer's without renorm and stage 2's with), the throughput of 2,048
+   walkers (16 warm-up + 128 timed steps) with K6's to K9's shares of the
+   device time, K7's fast, exact and constant-row times, K8's and K9's (on
+   and off) times as events and alone at 1,024 and 171 walkers, K6 beside
    ``torch.matmul(Wcomb, D)`` (the product alone: a yardstick for the row
    build) and a ``fill_`` of the model's size (the write alone), and a
    crossover of the lanes at 1,024 walkers from nd = 4,096 to 65,536;
@@ -86,7 +92,9 @@ one, an FMA two; the model row counts only the non-zero blend weights; a
 median count pass is a compare and an add per point and threshold.  K7's
 bound is its function's bytes alone (the model read once, the medians
 written), whatever algorithm computes the median; its report entry also
-carries ``launches_exact``, ``launches_fast`` and ``ms_exact``.  The
+carries ``launches_exact``, ``launches_fast`` and ``ms_exact``.  K9's entry
+(``ms`` with renorm) carries ``ms_raw`` and ``bound_ms_raw`` without renorm,
+and ``launches_raw`` and ``launches_renorm``.  The
 multiply chains of S10 count one operation per multiply and per add, so their
 bound holds them against 67 TFLOP/s, twice the rate of one multiply per FP32
 lane per clock (S10 measures the latter).
@@ -123,9 +131,10 @@ NW_LARGE = 1024  # the JAX largend cell's evaluation batch
 LARGE_ANNEAL_STEPS, LARGE_SAMPLE_STEPS = 8, 64
 LARGE_WARMUP, LARGE_TIMED = 16, 128
 CROSSOVER_ND = (4096, 8192, 16384, 32768, 65536)
-# the device names of K6-K9, for their share of the large-nd step
+NW_STAGE2 = -(-(NW_LARGE // 3) // 2)  # the larger of the fit's stage-2 half-steps (171 of 341)
+# the device names of K6-K9 (K8's and K9's segment sum too), for their share of the step
 LANE_KERNEL_NAMES = ("model_extinct_kernel", "median_kary_kernel", "renorm_partials_kernel",
-                     "resid_chi2_kernel")
+                     "resid_chi2_kernel", "lane_segments_sum_kernel")
 K7_ITERS = (31, 14, 15, 30)  # K7's dials held bit for bit: exact, production, two levels
 K7_CONST = 1.2345  # the value of K7's constant rows
 ND_EXP_ODD = 1791  # S11's odd row
@@ -183,10 +192,10 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 
 def device_ms(fn, kernel, reps=20):
-    """Mean device milliseconds of one launch of the kernels whose name holds ``kernel``
-    over ``reps`` calls of ``fn()`` under ``torch.profiler``: the kernel alone, without
-    the wrapper's host time that CUDA events around the call also see; None where the
-    profiler reports no device time."""
+    """Mean device milliseconds per call of ``fn()`` of the kernels whose name holds
+    ``kernel`` (a name or a tuple of names) over ``reps`` calls under ``torch.profiler``:
+    the kernels alone, without the wrapper's host time that CUDA events around the call
+    also see; None where the profiler reports no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -197,10 +206,10 @@ def device_ms(fn, kernel, reps=20):
             fn()
         torch.cuda.synchronize()
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+    names = (kernel,) if isinstance(kernel, str) else kernel
     ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and kernel in e.key]
-    n = sum(e.count for e in ev)
-    return sum(dev_us(e) for e in ev) * 1e-3 / n if n else None
+          if e.device_type == DeviceType.CUDA and any(n in e.key for n in names)]
+    return sum(dev_us(e) for e in ev) * 1e-3 / reps if ev else None
 
 
 def fmt_ms(ms):
@@ -330,8 +339,8 @@ def check_k1(name, tgt, P, max_outside):
 def warp_kernels_report(tgt):
     """K1, K3, K4 and K5 run one warp per walker: print each kernel's walkers per block at
     the bench shape (K4's and K5's fleet is padded to it) and at LARGE_ND, and its ptxas
-    line, which must show no barrier; then K6's and K7's ptxas lines, which must show no
-    spill."""
+    line, which must show no barrier; then K6's to K9's ptxas lines (each instantiation,
+    and K8's and K9's segment sum), which must show no spill."""
     from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
     from mcmc_spec_tpu_torch.ops import spec_segmented as seg
     from mcmc_spec_tpu_torch.runtime import compare_builds, cuda_build
@@ -351,12 +360,15 @@ def warp_kernels_report(tgt):
         require("used 0 barriers" in line, f"{name}: ptxas reports a barrier: {line}")
     log = cuda_build.library_path().with_suffix(".log").read_text().splitlines()
     for name, kernel in (("K6 shared D tile", "model_extinct_kernel"),
-                         ("K7 histogram select", "median_kary_kernel")):
-        key = next(k for k in lines if kernel in k)
-        props = next(log[i + 1].strip() for i, line in enumerate(log)
-                     if f"Function properties for {key}" in line)
-        print(f"[{name}] ptxas: {lines[key]}; {props}")
-        require(" 0 bytes spill stores" in props, f"{name} spills registers: {props}")
+                         ("K7 histogram select", "median_kary_kernel"),
+                         ("K8 walker chunks", "renorm_partials_kernel"),
+                         ("K9 walker chunks", "resid_chi2_kernel"),
+                         ("K8/K9 segment sum", "lane_segments_sum_kernel")):
+        for key in sorted(k for k in lines if kernel in k):  # each instantiation
+            props = next(log[i + 1].strip() for i, line in enumerate(log)
+                         if f"Function properties for {key}" in line)
+            print(f"[{name}] {key}: ptxas: {lines[key]}; {props}")
+            require(" 0 bytes spill stores" in props, f"{name} spills registers: {props}")
 
 
 def check_k3(name, tgt, P, max_outside):
@@ -770,15 +782,7 @@ def check_lane(name, tgt, P, dials, max_outside, eager):
             f"K7 {name}: {NW - same} rows ({NW - same_rows} per-row) differ from the plain version")
     res["median_nonneg"] = (0, 0.0, float((med - med_ref).abs().max()))
     scale = med_data.to(torch.float32) / med
-    coeffs = seg.renorm_partials(model, scale, data, Vpinv, recip)
-    torch.cuda.synchronize()
-    res["renorm_partials"] = compare(
-        coeffs, seg.renorm_partials_reference(model, scale, data, Vpinv, recip))
-    for renorm in (True, False):
-        got = seg.resid_chi2(model, scale, coeffs, data, err, V, recip, renorm)
-        torch.cuda.synchronize()
-        ref = seg.resid_chi2_reference(model, scale, coeffs, data, err, V, recip, renorm)
-        res[f"resid_chi2 renorm={renorm}"] = compare(got, ref)
+    res.update(check_stats(name, model, scale, data, err, V, Vpinv, recip))
     for renorm in (True, False):
         got = seg.spectrum_chi2_segmented(*ops, renorm=renorm, **kw)
         torch.cuda.synchronize()
@@ -788,12 +792,59 @@ def check_lane(name, tgt, P, dials, max_outside, eager):
             sort = (_spec_chi2_xla if renorm else _spec_chi2_xla_median_only)(Wcomb, av, tgt)
             res[f"composition vs eager sort renorm={renorm}"] = compare(got, sort)
     for k, (outside, rel, err_abs) in res.items():
-        print(f"[{k} {name}] {NW} walkers: {outside} outside tolerance (allowed {max_outside}), "
-              f"max rel err {rel:.3e}, max abs err {err_abs:.3e}")
+        print(f"[{k} {name}] {NW_STAGE2 if 'walkers' in k else NW} walkers: {outside} outside "
+              f"tolerance (allowed {max_outside}), max rel err {rel:.3e}, max abs err "
+              f"{err_abs:.3e}")
         require(outside <= max_outside, f"{k} {name}: {outside} walkers outside tolerance")
     errs = {k: res[k][2] for k in ("model_extinct", "median_nonneg", "renorm_partials")}
     errs["resid_chi2"] = max(res["resid_chi2 renorm=True"][2], res["resid_chi2 renorm=False"][2])
     return errs
+
+
+def check_stats(name, model, scale, data, err, V, Vpinv, recip):
+    """K8 and K9 (renorm on and off) against their plain versions on the same inputs, on
+    every walker of ``model`` and on its last NW_STAGE2 (the fit's stage-2 half-step,
+    with the edge walkers), each kernel called twice: the second call must give the
+    first's bits, and no walker may lie outside the gate.  K9 takes K8's coefficients.
+    Returns {kernel: (walkers outside, max rel err, max abs err)}."""
+    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
+
+    res = {}
+    for label, rows in (("", slice(None)), (f" {NW_STAGE2} walkers", slice(-NW_STAGE2, None))):
+        m, sc = model[rows].contiguous(), scale[rows].contiguous()
+        coeffs = seg.renorm_partials(m, sc, data, Vpinv, recip)
+        calls = {"renorm_partials": (
+            lambda: seg.renorm_partials(m, sc, data, Vpinv, recip),
+            lambda: seg.renorm_partials_reference(m, sc, data, Vpinv, recip))}
+        for renorm in (True, False):
+            calls[f"resid_chi2 renorm={renorm}"] = (
+                lambda r=renorm: seg.resid_chi2(m, sc, coeffs, data, err, V, recip, r),
+                lambda r=renorm: seg.resid_chi2_reference(m, sc, coeffs, data, err, V, recip, r))
+        for k, (kern, ref) in calls.items():
+            first, second = kern(), kern()
+            torch.cuda.synchronize()
+            same = torch.equal(first.view(torch.int32), second.view(torch.int32))
+            res[k + label] = compare(first, ref())
+            print(f"[{k}{label} {name}] a second call bit for bit the first: {same}")
+            require(same, f"{k}{label} {name}: a second call gave other bits")
+            require(res[k + label][0] == 0,
+                    f"{k}{label} {name}: {res[k + label][0]} walkers outside tolerance")
+    return res
+
+
+def check_stats_at(name, tgt, P, dials):
+    """check_stats on the model, median and scale of walkers ``P`` of target ``tgt``,
+    with the results printed."""
+    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
+
+    Wcomb, av, D, kd, data, err, V, Vpinv, med_data, n_true = lane_operands(tgt, P)
+    kw = dial_kwargs(dials)
+    model = seg.model_extinct(Wcomb, av, D, kd)
+    scale = med_data.to(torch.float32) / seg.median_nonneg(model, n_true, kw["iters"])
+    for k, (outside, rel, err_abs) in check_stats(name, model, scale, data, err, V, Vpinv,
+                                                  kw["recip"]).items():
+        print(f"[{k} {name}] {P.shape[0] if 'walkers' not in k else NW_STAGE2} walkers: "
+              f"{outside} outside tolerance, max rel err {rel:.3e}, max abs err {err_abs:.3e}")
 
 
 def check_k6(name, Wcomb, av, D, kd):
@@ -915,6 +966,10 @@ def check_lane_boundary(dev):
     ops = lane_operands(tgt, P)
     check_k6(f"nd={seg.LARGE_ND}", *ops[:4])
     check_k7(f"nd={seg.LARGE_ND}", lane_model(tgt, P[:NW_LARGE]), tgt.n_data_true)
+    # K8 and K9 also at recip 1, a dial neither dial set takes
+    for label, dials in (("exact", EXACT), ("production", PROD),
+                         ("recip 1", dict(PROD, recip_newton=1))):
+        check_stats_at(f"nd={seg.LARGE_ND} {label} dials", tgt, P, dials)
     for renorm in (True, False):
         got = seg.spectrum_chi2_segmented(*ops, renorm=renorm, **dial_kwargs(EXACT))
         ref = ck.spectrum_chi2(*ops[:9], renorm=renorm, **dial_kwargs(EXACT))
@@ -927,8 +982,9 @@ def check_lane_boundary(dev):
 
 def largend_fit(tgt, truth, dev):
     """The two-stage fit at nd = ND_FIT through the user entry points: the main path
-    of the segmented lane.  Returns the launch counts, the stage-1 wall time and K7's
-    launches by median mode ({"exact": the annealer's, "fast" or "exact": stage 2's})."""
+    of the segmented lane.  Returns the launch counts, the stage-1 wall time, K7's
+    launches by median mode ({"exact": the annealer's, "fast" or "exact": stage 2's})
+    and K9's by mode ({"raw": the annealer's, without renorm, "renorm": stage 2's})."""
     from mcmc_spec_tpu_torch.inference.anneal import init_walkers, run_anneal
     from mcmc_spec_tpu_torch.inference.batched import log_posterior_batch
     from mcmc_spec_tpu_torch.inference.stretch import init_ensemble, run_ensemble
@@ -944,6 +1000,7 @@ def largend_fit(tgt, truth, dev):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     k7_stage1 = ck.LAUNCHES["median_nonneg"]  # the median-only scoring: the exact median
+    k9_stage1 = ck.LAUNCHES["resid_chi2"]  # the median-only scoring: K9 without renorm
     take = NW_LARGE // 3
     state = init_ensemble(params[torch.argsort(chi)[:take]], logp, gen)
     state, chain, _ = run_ensemble(state, logp, LARGE_SAMPLE_STEPS, thin=8)
@@ -968,11 +1025,74 @@ def largend_fit(tgt, truth, dev):
     k7_modes[stage2_mode] += launches["median_nonneg"] - k7_stage1
     print(f"[largend fit nd={ND_FIT}] K7 launches: {k7_stage1} exact in stage 1, "
           f"{launches['median_nonneg'] - k7_stage1} {stage2_mode} in stage 2 (iters "
-          f"{tgt.median_iters})")
+          f"{tgt.median_iters}); K9 launches: {k9_stage1} without renorm in stage 1 "
+          f"({NW_LARGE} walkers), {launches['resid_chi2'] - k9_stage1} with renorm in stage 2 "
+          f"({NW_STAGE2} or {take - NW_STAGE2} walkers); K8 launches: "
+          f"{launches['renorm_partials']}, all in stage 2")
+    k9_modes = {"raw": k9_stage1, "renorm": launches["resid_chi2"] - k9_stage1}
     med = chain[chain.shape[0] // 2:].reshape(-1, tgt.ndim).median(dim=0).values.cpu().numpy()
     for k, (m, t) in enumerate(zip(med, truth)):
         print(f"[largend fit] param {k}: posterior median {m:.6g}, truth {t:.6g}")
-    return launches, t1 - t0, k7_modes
+    return launches, t1 - t0, k7_modes, k9_modes
+
+
+def lane_stats_inputs(tgt, P, dials):
+    """K6's model rows of walkers ``P``, K7's medians, the scale and K8's coefficients as
+    the lane forms them, and the lane's operands."""
+    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
+
+    ops = lane_operands(tgt, P)
+    Wcomb, av, D, kd, data, err, V, Vpinv, med_data, n_true = ops
+    kw = dial_kwargs(dials)
+    model = seg.model_extinct(Wcomb, av, D, kd)
+    med = seg.median_nonneg(model, n_true, kw["iters"])
+    scale = med_data.to(torch.float32) / med
+    coeffs = seg.renorm_partials(model, scale, data, Vpinv, kw["recip"])
+    return model, med, scale, coeffs, ops
+
+
+def stats_calls(model, scale, coeffs, data, err, V, Vpinv, recip):
+    """{name: (kernel call, plain call)} of K8 and K9, where ``resid_chi2`` is K9 with
+    renorm (stage 2's evaluation) and ``resid_chi2_raw`` without (the annealer's scoring)."""
+    from mcmc_spec_tpu_torch.ops import spec_segmented as seg
+
+    return {
+        "renorm_partials": (lambda: seg.renorm_partials(model, scale, data, Vpinv, recip),
+                            lambda: seg.renorm_partials_reference(model, scale, data, Vpinv,
+                                                                  recip)),
+        "resid_chi2": (lambda: seg.resid_chi2(model, scale, coeffs, data, err, V, recip),
+                       lambda: seg.resid_chi2_reference(model, scale, coeffs, data, err, V,
+                                                        recip)),
+        "resid_chi2_raw": (
+            lambda: seg.resid_chi2(model, scale, None, data, err, V, recip, False),
+            lambda: seg.resid_chi2_reference(model, scale, None, data, err, V, recip, False)),
+    }
+
+
+def lane_stats_times(tgt, P, dials):
+    """K8 and K9 (renorm on and off) on walkers ``P``: ({name: (kernel ms, plain ms)},
+    {name: bound}, {name: device ms alone, with the segment sum}), names as
+    ``stats_calls``."""
+    model, med, scale, coeffs, ops = lane_stats_inputs(tgt, P, dials)
+    data, err, V, Vpinv = ops[4:8]
+    NW, nd = model.shape
+    calls = stats_calls(model, scale, coeffs, data, err, V, Vpinv, dial_kwargs(dials)["recip"])
+    out = {k: (cuda_ms(kern), cuda_ms(ref, reps=5)) for k, (kern, ref) in calls.items()}
+    kernel = {"renorm_partials": "renorm_partials_kernel", "resid_chi2": "resid_chi2_kernel",
+              "resid_chi2_raw": "resid_chi2_kernel"}
+    alone = {k: device_ms(calls[k][0], (kernel[k], "lane_segments_sum_kernel"))
+             for k in calls}
+    bounds = {
+        # a multiply, a divide and three FMAs per point
+        "renorm_partials": bound(nbytes(model, scale, data, Vpinv, coeffs), 8 * NW * nd),
+        # the scale, the fit (a multiply and two FMAs), a divide, the residual, its square
+        # sum; 1/err once a point
+        "resid_chi2": bound(nbytes(model, scale, coeffs, data, err, V, med),
+                            11 * NW * nd + nd),
+        # without renorm: the scale, the residual, its square sum
+        "resid_chi2_raw": bound(nbytes(model, scale, data, err, med), 5 * NW * nd + nd),
+    }
+    return out, bounds, alone
 
 
 def lane_kernel_times(tgt, P, dials, plain=False):
@@ -980,35 +1100,28 @@ def lane_kernel_times(tgt, P, dials, plain=False):
     ({name: (kernel ms, plain ms)}, {name: library ms}, {name: bound}, K7's other times
     {"exact": the exact median, "constant 14"/"constant 31": rows of one value}, K6's
     yardsticks {"matmul": ``torch.matmul(Wcomb, D)``, the product without the extinction,
-    "fill": ``fill_`` of a model-sized buffer, the write alone}; neither is a library call
-    for K6)."""
+    "fill": ``fill_`` of a model-sized buffer, the write alone; neither is a library call
+    for K6}, {name: device ms alone} for K6, K8 and K9), where K8's and K9's entries
+    (``resid_chi2_raw``: K9 without renorm, with its own bound) are ``lane_stats_times``'s."""
     from mcmc_spec_tpu_torch.ops import spec_segmented as seg
 
-    Wcomb, av, D, kd, data, err, V, Vpinv, med_data, n_true = lane_operands(tgt, P)
-    kw = dial_kwargs(dials)
-    iters, recip = kw["iters"], kw["recip"]
-    model = seg.model_extinct(Wcomb, av, D, kd)
-    med = seg.median_nonneg(model, n_true, iters)
-    scale = med_data.to(torch.float32) / med
-    coeffs = seg.renorm_partials(model, scale, data, Vpinv, recip)
+    model, med, scale, coeffs, ops = lane_stats_inputs(tgt, P, dials)
+    Wcomb, av, D, kd, data, err, V, Vpinv, med_data, n_true = ops
+    iters = dial_kwargs(dials)["iters"]
     calls = {
         "model_extinct": (lambda: seg.model_extinct(Wcomb, av, D, kd),
                           lambda: seg.model_extinct_reference(Wcomb, av, D, kd)),
         "median_nonneg": (lambda: seg.median_nonneg(model, n_true, iters),
                           lambda: seg.median_nonneg_reference(model, n_true, iters)),
-        "renorm_partials": (lambda: seg.renorm_partials(model, scale, data, Vpinv, recip),
-                            lambda: seg.renorm_partials_reference(model, scale, data, Vpinv,
-                                                                  recip)),
-        "resid_chi2": (lambda: seg.resid_chi2(model, scale, coeffs, data, err, V, recip),
-                       lambda: seg.resid_chi2_reference(model, scale, coeffs, data, err, V,
-                                                        recip)),
     }
-    times = {k: cuda_ms(kern) for k, (kern, _) in calls.items()}
     if not plain:
-        return times
+        stats = stats_calls(model, scale, coeffs, data, err, V, Vpinv,
+                            dial_kwargs(dials)["recip"])
+        calls.update((k, stats[k]) for k in ("renorm_partials", "resid_chi2"))
+        return {k: cuda_ms(kern) for k, (kern, _) in calls.items()}
     NW, nd = model.shape
     r1 = (int(n_true) + 1) // 2
-    out = {k: (times[k], cuda_ms(ref, reps=5)) for k, (_, ref) in calls.items()}
+    out = {k: (cuda_ms(kern), cuda_ms(ref, reps=5)) for k, (kern, ref) in calls.items()}
     library = {"median_nonneg": cuda_ms(lambda: torch.kthvalue(model, r1, dim=1))}
     const = torch.full_like(model, K7_CONST)
     k7 = {"exact": cuda_ms(lambda: seg.median_nonneg(model, n_true, 31)),
@@ -1017,19 +1130,19 @@ def lane_kernel_times(tgt, P, dials, plain=False):
     buf = torch.empty_like(model)
     yard = {"matmul": cuda_ms(lambda: torch.matmul(Wcomb, D)),
             "fill": cuda_ms(lambda: buf.fill_(1.0))}
-    inv_err, VT = 1.0 / err, V.T.contiguous()
+    alone = {"model_extinct": device_ms(calls["model_extinct"][0], "model_extinct_kernel")}
     bounds = {
         "model_extinct": bound(nbytes(Wcomb, av, D, kd, model),
                                2 * int(torch.count_nonzero(Wcomb)) * nd
                                + 3 * int((av > 0).sum()) * nd),
         # the function's work, whatever computes it: the model read once, the medians out
         "median_nonneg": bound(nbytes(model, med) + 4, 0),
-        # a multiply, a divide and three FMAs per point
-        "renorm_partials": bound(nbytes(model, scale, data, Vpinv, coeffs), 8 * NW * nd),
-        # the scale, the fit (a multiply and two FMAs), a divide, the residual, its square sum
-        "resid_chi2": bound(nbytes(model, scale, coeffs, data, inv_err, VT, med), 11 * NW * nd),
     }
-    return out, library, bounds, k7, yard
+    s_out, s_bounds, s_alone = lane_stats_times(tgt, P, dials)
+    out.update(s_out)
+    bounds.update(s_bounds)
+    alone.update(s_alone)
+    return out, library, bounds, k7, yard, alone
 
 
 def largend_throughput(dev, targets):
@@ -1074,9 +1187,12 @@ def largend_throughput(dev, targets):
                            if any(n in k for n in LANE_KERNEL_NAMES))
                 shares = []
                 for kname, kernel in (("K6", "model_extinct_kernel"),
-                                      ("K7", "median_kary_kernel")):
+                                      ("K7", "median_kary_kernel"),
+                                      ("K8", "renorm_partials_kernel"),
+                                      ("K9", "resid_chi2_kernel"),
+                                      ("K8/K9 segment sum", "lane_segments_sum_kernel")):
                     kt = sum(v for k, v in every.items() if kernel in k)
-                    shares.append(f"{kname} {kt:.4f} ms of {lane:.4f} ms in the lane's four "
+                    shares.append(f"{kname} {kt:.4f} ms of {lane:.4f} ms in the lane's "
                                   f"kernels ({kt / lane:.3f}), of {sum(every.values()):.4f} ms "
                                   f"on the device ({kt / sum(every.values()):.3f})"
                                   if lane > 0 else f"{kname} not measured")
@@ -1152,6 +1268,8 @@ def largend_checks(dev):
     Pw = torch.cat([init_walker_batch(wide, wide_truth, NW_LARGE), edge_walkers(wide_truth, wide)])
     check_k6(f"nd={ND_WIDE}", *lane_operands(wide, Pw)[:4])
     check_k7(f"nd={ND_WIDE}", lane_model(wide, Pw[:NW_LARGE]), wide.n_data_true)
+    for label, dials in (("exact", EXACT), ("production", PROD)):
+        check_stats_at(f"nd={ND_WIDE} {label} dials", wide, Pw, dials)
     check_k6("past the staged rows", *k6_wide_grid_inputs(dev))
     check_lane_boundary(dev)
     return tgt, truth, P, errs, (wide, wide_truth)
@@ -1162,22 +1280,25 @@ def largend_phase(dev):
 
     tgt, truth, P, errs, wide = largend_checks(dev)
     t0 = time.perf_counter()
-    launches, stage1_s, k7_modes = largend_fit(tgt, truth, dev)
+    launches, stage1_s, k7_modes, k9_modes = largend_fit(tgt, truth, dev)
     print(f"[largend] fit {time.perf_counter() - t0:.1f} s")
     rates = largend_throughput(dev, {ND_FIT: (tgt, truth), ND_WIDE: wide})
 
-    # the kernel report: one half-step at nd = ND_FIT, production dials
-    times, library, bounds, k7, yard = lane_kernel_times(
-        dataclasses.replace(tgt, **PROD), P[:NW_LARGE].contiguous(), PROD, plain=True)
-    ops = lane_operands(dataclasses.replace(tgt, **PROD), P[:NW_LARGE].contiguous())
+    # the kernel report: one half-step at nd = ND_FIT, production dials; K8 and K9 also
+    # at the fit's stage-2 half-step
+    prod = dataclasses.replace(tgt, **PROD)
+    half = P[:NW_LARGE].contiguous()
+    times, library, bounds, k7, yard, alone = lane_kernel_times(prod, half, PROD, plain=True)
+    stage2 = lane_stats_times(prod, P[:NW_STAGE2].contiguous(), PROD)
+    ops = lane_operands(prod, half)
     for k, (ms, plain_ms) in times.items():
         lib = library.get(k)
         print(f"[time {k} production] {NW_LARGE} walkers x nd={ND_FIT}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bounds[k][0]:.5f} ms ({bounds[k][1]})"
               + (f", library (torch.kthvalue) {lib:.4f} ms" if lib is not None else ""))
-    k6_alone = fmt_ms(device_ms(lambda: seg.model_extinct(*ops[:4]), "model_extinct_kernel"))
     print(f"[time model_extinct] {NW_LARGE} walkers x nd={ND_FIT}: kernel "
-          f"{times['model_extinct'][0]:.4f} ms (alone on the device {k6_alone}); "
+          f"{times['model_extinct'][0]:.4f} ms (alone on the device "
+          f"{fmt_ms(alone['model_extinct'])}); "
           f"torch.matmul(Wcomb, D) alone, the same {4 * NW_LARGE * ND_FIT / 1e6:.0f} MB written "
           f"without the extinction (a yardstick for the row build) {yard['matmul']:.4f} ms; the "
           f"write alone (fill_ of a model-sized buffer) {yard['fill']:.4f} ms; bound "
@@ -1189,17 +1310,27 @@ def largend_phase(dev):
           f"{bounds['median_nonneg'][0]:.5f} ms: fast at "
           f"{bounds['median_nonneg'][0] / times['median_nonneg'][0]:.3f} of it, exact at "
           f"{bounds['median_nonneg'][0] / k7['exact']:.3f}")
+    # K8 and K9 (with and without renorm) at both shapes: events, alone, share of the bound
+    for nw, (t, b, al) in ((NW_LARGE, (times, bounds, alone)),
+                           (NW_STAGE2, stage2)):
+        for k in ("renorm_partials", "resid_chi2", "resid_chi2_raw"):
+            share = "" if al[k] is None else f", alone at {b[k][0] / al[k]:.3f}"
+            print(f"[time {k} production] {nw} walkers x nd={ND_FIT}: kernel {t[k][0]:.4f} ms "
+                  f"(alone on the device {fmt_ms(al[k])}), plain {t[k][1]:.4f} ms, bound "
+                  f"{b[k][0]:.5f} ms ({b[k][1]}): the kernel at {b[k][0] / t[k][0]:.3f} of "
+                  f"it{share}")
     # K10, the composition of K6-K9, on the same half-step
     k10 = (cuda_ms(lambda: seg.spectrum_chi2_segmented(*ops, **dial_kwargs(PROD))),
            cuda_ms(lambda: seg.spectrum_chi2_segmented_reference(*ops, **dial_kwargs(PROD)),
                    reps=5))
     print(f"[time spectrum_chi2_segmented (K10) production] {NW_LARGE} walkers x nd={ND_FIT}: "
           f"composition {k10[0]:.4f} ms, plain {k10[1]:.4f} ms, bound (the sum of K6-K9's) "
-          f"{sum(b[0] for b in bounds.values()):.5f} ms")
+          f"{sum(b[0] for k, b in bounds.items() if k != 'resid_chi2_raw'):.5f} ms")
     cross = largend_crossover(dev, {ND_FIT: (tgt, truth)})
     return {"errs": errs, "launches": launches, "stage1_s": stage1_s, "rates": rates,
             "times": times, "library": library, "bounds": bounds, "crossover": cross, "k10": k10,
-            "k7": k7, "k7_modes": k7_modes, "yardsticks": yard}
+            "k7": k7, "k7_modes": k7_modes, "k9_modes": k9_modes, "yardsticks": yard,
+            "alone": alone, "stage2": stage2}
 
 
 def experiments_checks(dev, tgt, truth):
@@ -1835,6 +1966,13 @@ def main() -> int:
     k7 = next(r for r in report if r["name"] == "median_nonneg")
     k7.update({"launches_exact": lres["k7_modes"]["exact"],
                "launches_fast": lres["k7_modes"]["fast"], "ms_exact": lres["k7"]["exact"]})
+    # K9 without renorm (the annealer's scoring), timed and bounded beside `ms`, which is
+    # with renorm, and its launches by mode in the large-nd fit
+    k9 = next(r for r in report if r["name"] == "resid_chi2")
+    k9.update({"ms_raw": lres["times"]["resid_chi2_raw"][0],
+               "bound_ms_raw": lres["bounds"]["resid_chi2_raw"][0],
+               "launches_raw": lres["k9_modes"]["raw"],
+               "launches_renorm": lres["k9_modes"]["renorm"]})
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -344,8 +344,9 @@ _SIGNATURES = {
     # the segmented large-nd lane (ops.spec_segmented)
     "model_extinct_launch": [_P] * 5 + [_I] * 4 + [_P],
     "median_kary_launch": [_P] * 3 + [_I] * 4 + [_P],
-    "renorm_partials_launch": [_P] * 5 + [_I] * 3 + [_P],
-    "resid_chi2_launch": [_P] * 7 + [_I] * 4 + [_P],
+    # K8 and K9 take their scratch and layout (spec_segmented.lane_stats_layout)
+    "renorm_partials_launch": [_P] * 6 + [_I] * 5 + [_P],
+    "resid_chi2_launch": [_P] * 8 + [_I] * 6 + [_P],
     # the cost-attribution experiments (mcmc_spec_tpu_torch.scripts)
     "fma_chains_launch": [_P] * 2 + [ctypes.c_longlong] + [_I] + [_P],
     "median_only_launch": [_P] * 2 + [_I] * 3 + [_P],

@@ -18,6 +18,11 @@ device memory, in four kernels hand-written in CUDA C++ for ``sm_90a``
   projection partials ``[NW, 3]``;
 * ``resid_chi2`` (K9, ``csrc/segmented_stats.cu``): the chi^2 residual sum.
 
+K8 and K9 share a layout (``lane_stats_layout``): a block takes a chunk of
+``LANE_W`` walkers over one segment of the points, reads the shared rows of a
+step once for all of them and each walker's row by 16-byte loads; a second
+kernel sums the segments in order.
+
 ``spectrum_chi2_segmented`` (K10) composes them: the mean spectrum chi^2 of
 ``batched._spec_chi2_xla`` (renorm) or ``_spec_chi2_xla_median_only``,
 over the ``n_data_true`` real points.  Beside each kernel is its plain
@@ -31,6 +36,7 @@ them): a NaN chi^2 becomes a -inf log-likelihood in ``inference.batched``.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -53,6 +59,18 @@ _F32 = torch.float32
 # K6's tiling (kTileP and kChunkW in csrc/model_extinct.cu): a block stages the rows of
 # D over MODEL_TILE_P points and serves MODEL_CHUNK_W walkers from them
 MODEL_TILE_P, MODEL_CHUNK_W = 256, 128
+
+
+# K8's and K9's layout (kLaneThreads and kLaneW in csrc/segmented_stats.cu): a block of
+# LANE_THREADS threads covers LANE_STEP points a step (four a thread) for a chunk of LANE_W
+# walkers
+LANE_THREADS = 128
+LANE_STEP = 4 * LANE_THREADS
+LANE_W = 4
+# the blocks a launch of K8 or K9 aims for (32 on each of an H100's 132 SMs), and the
+# fewest steps a segment takes where that would cut the points finer
+LANE_BLOCKS = 32 * 132
+LANE_MIN_STEPS = 6
 
 
 def _exact(iters) -> bool:
@@ -202,6 +220,78 @@ def median_nonneg(model, n_true, iters=None):
 
 
 # ---------------------------------------------------------------------------
+# K8 and K9: the layout
+
+
+class LaneLayout(NamedTuple):
+    """The grid of K8 and K9: ``chunks`` chunks of ``LANE_W`` walkers (``groups``
+    classes of walkers whose rows share their offset within 16 bytes) times
+    ``n_seg`` segments of ``seg_len`` points (the last one shorter)."""
+    groups: int
+    chunks: int
+    seg_len: int
+    n_seg: int
+
+    @property
+    def blocks(self) -> int:
+        return self.chunks * self.n_seg
+
+
+def lane_groups(nd: int) -> int:
+    """``4 / gcd(nd, 4)``: rows ``w`` and ``w + G`` of a ``[NW, nd]`` float32 model start
+    at the same offset within 16 bytes (``lane_groups`` in the kernel's source)."""
+    return 1 if nd % 4 == 0 else (4 if nd % 2 else 2)
+
+
+def lane_stats_layout(NW: int, nd: int) -> LaneLayout:
+    """The layout of K8 and K9 for ``NW`` walkers of ``nd`` points.
+
+    A chunk holds ``LANE_W`` walkers of one class ``w mod G`` (``lane_groups``),
+    so its rows share their alignment.  The points are cut into segments of whole
+    steps (``LANE_STEP`` points), enough that the chunks times the segments reach
+    ``LANE_BLOCKS``, but none shorter than ``LANE_MIN_STEPS`` steps where the
+    row has that many: at nd = 65,536, 1,024 walkers (256 chunks) take 16
+    segments of 4,096 points, the 171 of the fit's stage 2 (43 chunks) 22 of
+    3,072.
+    """
+    cdiv = lambda a, b: -(-a // b)
+    G = lane_groups(nd)
+    chunks = G * cdiv(cdiv(NW, G), LANE_W)
+    steps = cdiv(nd, LANE_STEP)
+    n_seg = max(1, min(cdiv(LANE_BLOCKS, chunks), cdiv(steps, LANE_MIN_STEPS)))
+    seg_len = cdiv(steps, n_seg) * LANE_STEP
+    return LaneLayout(G, chunks, seg_len, cdiv(nd, seg_len))
+
+
+def lane_stats_block(layout: LaneLayout, NW: int, nd: int, b: int, offset: int = 0):
+    """Block ``b``'s share of the work, the Python twin of ``lane_block`` in
+    ``csrc/segmented_stats.cu``: (its walkers, ``lo``, ``hi``, ``a``, ``nq``) with the
+    segment ``[lo, hi)``, its scalar head ``[lo, a)``, its body of ``nq`` float4 from
+    ``a`` and its scalar tail ``[a + 4 nq, hi)``.  ``offset`` is the model's own
+    offset in floats from a 16-byte boundary."""
+    k, s = divmod(b, layout.n_seg)
+    G, W = layout.groups, LANE_W
+    first = k % G + G * W * (k // G)
+    walkers = list(range(first, min(NW, first + G * W), G))
+    lo = s * layout.seg_len
+    hi = min(nd, lo + layout.seg_len)
+    off = (offset + first * nd + lo) & 3
+    a = min(hi, lo + ((4 - off) & 3))
+    return walkers, lo, hi, a, (hi - a) >> 2
+
+
+def _lane_scratch(layout: LaneLayout, shape: tuple, dev):
+    """The segments' partial sums ``[n_seg, *shape]``, or None where one segment
+    writes the result itself."""
+    return (torch.empty((layout.n_seg, *shape), dtype=_F32, device=dev)
+            if layout.n_seg > 1 else None)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
 # K8: continuum projection partials
 
 
@@ -223,6 +313,11 @@ def renorm_partials(model, scale, data_flux, Vpinv, recip):
     if model.device.type == "cpu":
         return renorm_partials_reference(model, scale, data_flux, Vpinv, recip)
     _require_cuda(model, "renorm_partials")
+    return _renorm_partials_launch(model, scale, data_flux, Vpinv, recip)
+
+
+def _renorm_partials_launch(model, scale, data_flux, Vpinv, recip):
+    """K8's checks, buffers and launch on the tensors' device (the wrapper's CUDA path)."""
     dev = model.device
     NW, nd = model.shape
     model, scale, data_flux, Vpinv = (x.contiguous() for x in (model, scale, data_flux, Vpinv))
@@ -232,9 +327,11 @@ def renorm_partials(model, scale, data_flux, Vpinv, recip):
     out = torch.empty((NW, 3), dtype=_F32, device=dev)
     if NW * nd == 0:
         return out.zero_()
+    lay = lane_stats_layout(NW, nd)
+    part = _lane_scratch(lay, (NW, 3), dev)
     _launch("renorm_partials_launch", "renorm_partials", model.data_ptr(), scale.data_ptr(),
-            data_flux.data_ptr(), Vpinv.data_ptr(), out.data_ptr(), NW, nd, int(recip),
-            _stream(dev))
+            data_flux.data_ptr(), Vpinv.data_ptr(), _ptr(part), out.data_ptr(), NW, nd,
+            int(recip), lay.seg_len, lay.n_seg, _stream(dev))
     return out
 
 
@@ -265,25 +362,36 @@ def resid_chi2(model, scale, coeffs, data_flux, data_err, V, recip, renorm=True)
     if model.device.type == "cpu":
         return resid_chi2_reference(model, scale, coeffs, data_flux, data_err, V, recip, renorm)
     _require_cuda(model, "resid_chi2")
+    return _resid_chi2_launch(model, scale, coeffs, data_flux, data_err, V, recip, renorm)
+
+
+def _resid_chi2_launch(model, scale, coeffs, data_flux, data_err, V, recip, renorm):
+    """K9's checks, buffers and launch on the tensors' device (the wrapper's CUDA path).
+
+    ``data_err`` and ``V`` ([nd, 3]) go to the kernel as they are (made contiguous
+    if they are not), which takes ``1 / data_err`` and reads V's rows itself."""
     dev = model.device
     NW, nd = model.shape
-    model, scale, data_flux = model.contiguous(), scale.contiguous(), data_flux.contiguous()
-    inv_err = 1.0 / data_err
+    model, scale, data_flux, data_err = (x.contiguous() for x in (model, scale, data_flux,
+                                                                  data_err))
     checks = [(model, "model", (NW, nd)), (scale, "scale", (NW,)),
-              (data_flux, "data_flux", (nd,)), (inv_err, "1/data_err", (nd,))]
-    coef_ptr = VT_ptr = None
+              (data_flux, "data_flux", (nd,)), (data_err, "data_err", (nd,))]
     if renorm:
-        coeffs, VT = coeffs.contiguous(), V.T.contiguous()
-        checks += [(coeffs, "coeffs", (NW, 3)), (VT, "V.T", (3, nd))]
-        coef_ptr, VT_ptr = coeffs.data_ptr(), VT.data_ptr()
+        coeffs, V = coeffs.contiguous(), V.contiguous()
+        checks += [(coeffs, "coeffs", (NW, 3)), (V, "V", (nd, 3))]
+    else:
+        coeffs = V = None
     for t, name, shape in checks:
         _check(t, name, dev, shape)
     out = torch.empty(NW, dtype=_F32, device=dev)
     if NW * nd == 0:
         return out.zero_()
-    _launch("resid_chi2_launch", "resid_chi2", model.data_ptr(), scale.data_ptr(), coef_ptr,
-            data_flux.data_ptr(), inv_err.data_ptr(), VT_ptr, out.data_ptr(), NW, nd,
-            int(recip), int(bool(renorm)), _stream(dev))
+    lay = lane_stats_layout(NW, nd)
+    part = _lane_scratch(lay, (NW,), dev)
+    _launch("resid_chi2_launch", "resid_chi2", model.data_ptr(), scale.data_ptr(), _ptr(coeffs),
+            data_flux.data_ptr(), data_err.data_ptr(), _ptr(V), _ptr(part), out.data_ptr(), NW,
+            nd, int(recip), int(bool(renorm)), lay.seg_len, lay.n_seg,
+            _stream(dev))
     return out
 
 

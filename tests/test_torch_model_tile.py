@@ -192,15 +192,3 @@ def test_non_finite_d_under_a_zero_weight_is_the_precondition(binary4096, bad):
     keep = np.ones_like(skip, bool)
     keep[:, 7] = False
     assert np.array_equal(skip[keep].view(np.int32), dense[keep].view(np.int32))
-
-
-def test_k6_against_checkout_runs_on_cpu():
-    """The checkout comparison on the CPU, this checkout against itself: the child
-    processes run the plain version on the same saved inputs, so every row matches,
-    and the four runs alternate other, this, this, other."""
-    from mcmc_spec_tpu_torch.scripts import k6_against_checkout as k6c
-
-    res = k6c.main(k6c.HERE, device="cpu", nw=3, nd=300)
-    assert res["rows"] == res["rows_same"] == 3
-    assert len(res["this_ms"]) == len(res["other_ms"]) == 2
-    assert "max_abs_diff" not in res
