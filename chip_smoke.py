@@ -151,7 +151,28 @@ Phases, each of which exits non-zero on failure:
    directory (``nstep 10``, ``nburn 100``, ``nsteps 200``, depth cut from
    phase 11's 20 / 200 / 2,000): the artifact set, finite samples, and K6's,
    K7d's, K8's and K9's launches and the all-reduces exactly those of its
-   evaluations (the annealer's exact median, stage 2's production one).
+   evaluations (the annealer's exact median, stage 2's production one);
+14. the fleet over a targets x walkers mesh, then the host modules: (a) gloo
+   worlds whose ranks all compute on this card (their wall times are the
+   check's, not a rate of several cards) run ``run_fleet_ensemble_sharded`` on
+   phase 6's ragged nine targets, 4,096 walkers each, 16 steps at thin 8, on
+   K4 and on K5: a world of 3 (3x1) and of 4 (1x4, and 2x2 on the first six
+   targets), each rank on its block of the padded fleet; K5's chain bit for
+   bit the one-card ``run_fleet_ensemble`` from the same generator, K4's
+   initial log-probs inside the kernel gate (its chain is bit for bit where
+   the walkers are not split; where they are, ``scripts/batch_rows.py``
+   prints the ops whose rows change with the batch), the census (32 gathers and one
+   sum a rank) and 32 launches a rank; (b) ``run_fleet_mcmc`` in the world of
+   4 (2x2) on six targets x 1,024 walkers, burn-in 100 and 200 steps at nthin
+   100, on K5: every ``samples.txt`` byte for byte the one-card run's; (c)
+   ``EnsembleSampler`` on the bench target, 4,096 walkers, two ``run_mcmc``
+   blocks, bit for bit ``run_ensemble``, K1's launches exact; (d) both
+   examples (``fit_synthetic_binary --noplots``: K3 and K1, depth cut to 40
+   annealer steps and 1,000 steps; ``spec_sharded_fit 2 2`` in a gloo world
+   on this card, depth cut to 2 annealer steps and 60 steps: K6, K7d, K8,
+   K9);
+   (e) ``python -m mcmc_spec_tpu_torch.analysis --no-plots`` over three
+   result directories in a process of its own, on this machine's packages.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its bytes (each input read once, the
@@ -165,7 +186,10 @@ written), whatever algorithm computes the median; its report entry also
 carries ``launches_exact``, ``launches_fast`` and ``ms_exact``; K1's and
 K3's carry ``launches_pipeline``, their counts in phase 11; K3's, K4's and
 K5's carry ``launches_fleet_pipeline``, their counts in phase 12 (K5's in its
-resume pair).  K9's entry
+resume pair); K4's and K5's carry ``launches_fleet_mesh``, their counts on
+rank 0 of phase 14's 1x4 world, and K5's ``launches_fleet_mesh_pipeline``;
+K1's carries ``launches_sampler``; K1's and K3's ``launches_example``, their
+counts in ``fit_synthetic_binary``.  K9's entry
 (``ms`` with renorm) carries ``ms_raw`` and ``bound_ms_raw`` without renorm,
 and ``launches_raw`` and ``launches_renorm``.  The
 multiply chains of S10 count one operation per multiply and per add, so their
@@ -3062,6 +3086,372 @@ def sharding_phase(dev, smi, fit):
     return {"times": times, "cli": cli_res, "walls": walls, "errs": gate_errs}
 
 
+# phase 14: the fleet over a targets x walkers mesh, then the host modules.  (a) and (b) run in
+# gloo worlds whose ranks all compute on this one card (their wall times say how long the check
+# took, not a rate of several cards).  (a) the ragged nine targets of phase 6 at the koi2298
+# widths, 4,096 walkers each, 16 steps at thin 8 on K4 and on K5: a world of 3 (3x1), a world
+# of 4 (1x4, and 2x2 on the first six targets); (b) run_fleet_mcmc in the world of 4 (2x2) on
+# six targets x 1,024 walkers, burn-in 100 and 200 steps at nthin 100 (depth cut from phase
+# 12's 100 / 300 to fit the time limit), on K5; (c) EnsembleSampler on the bench target, 4,096
+# walkers, two run_mcmc blocks; (d) both examples (depth cut: fit_synthetic_binary's 200
+# annealer steps and 3,000 steps to 40 and 1,000, spec_sharded_fit's 100 and 500 to 2 and 60);
+# (e) the population analysis's CLI over three result directories, in a process of its own
+MESH_STEPS, MESH_THIN = 16, 8
+MESH_WORLDS = {3: ((3, 1, 9),), 4: ((1, 4, 9), (2, 2, 6))}  # (targets, walkers, fleet targets)
+MESH_PIPE_NTGT, MESH_PIPE_NW = 6, 1024
+MESH_PIPE_NBURN, MESH_PIPE_NSTEPS = 100, 200
+MESH_ROUTES = (("K4", "spectrum_chi2_fleet"), ("K5", "log_posterior_fleet_fused"))
+SAMPLER_NW, SAMPLER_BLOCKS, SAMPLER_THIN = 4096, (24, 16), 8
+EXAMPLE_SHARD_ARGS = ["2", "2", "--anneal-steps", "2", "--steps", "60"]
+# fit_synthetic_binary's depth cut from 200 annealer steps (10,000 iterations, host-bound)
+# and 3,000 sampler steps to fit the time limit
+EXAMPLE_FIT_KW = dict(anneal_steps=40, nsteps=1000)
+ANALYSIS_SYSTEMS = ("2298", "0268", "0042")
+
+
+def _route(route):
+    if route == "K5":
+        os.environ["MCMC_SPEC_FUSED_EVAL"] = "1"
+    else:
+        os.environ.pop("MCMC_SPEC_FUSED_EVAL", None)
+
+
+def _rank_fleet(fields, ntgt, device):
+    from mcmc_spec_tpu_torch.inference.target import DATA_FIELDS
+
+    return _rank_target({k: (v[:ntgt] if k in DATA_FIELDS else v) for k, v in fields.items()},
+                        device)
+
+
+def _fleet_mesh_rank(rank, fields, P, device, pipe=None):
+    """A rank of a phase-14 world on ``device`` (the card's, every rank): for each of its
+    world's meshes and each route, ``run_fleet_ensemble_sharded`` on its block, the chain
+    and the first log-probs gathered to every rank; then, given ``pipe`` (the fit root, the
+    param files, the seeds), ``run_fleet_mcmc`` on the 2x2 mesh."""
+    import torch.distributed as dist
+
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.parallel import mesh as pm
+    from mcmc_spec_tpu_torch.parallel import sharding
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for T, W, ntgt in MESH_WORLDS[dist.get_world_size()]:
+        mesh = pm.make_fleet_mesh(T, W, device=dev)
+        block = sharding.fleet_block(_rank_fleet(fields, ntgt, dev), mesh)
+        for route, _ in MESH_ROUTES:
+            _route(route)
+            _sync(dev)
+            t0 = time.perf_counter()
+            st = sharding.shard_fleet_state(torch.as_tensor(P[:ntgt], device=dev), block,
+                                            torch.Generator(device=dev).manual_seed(5), mesh)
+            lp0 = sharding.gather_fleet(st.log_prob, mesh)
+            ck.reset_launches()
+            pm.reset_collectives()
+            st, chain, _ = sharding.run_fleet_ensemble_sharded(st, block, mesh, MESH_STEPS,
+                                                               thin=MESH_THIN)
+            _sync(dev)
+            launches, census = dict(ck.LAUNCHES), pm.collective_counts()
+            out[(T, W, route)] = {
+                "chain": sharding.gather_fleet(chain, mesh, dim=2).cpu().numpy(),
+                "lp0": lp0.cpu().numpy(), "n_accept": int(st.n_accept), "launches": launches,
+                "census": census, "wall": time.perf_counter() - t0,
+                "block": tuple(block.D.shape)}
+    os.environ.pop("MCMC_SPEC_FUSED_EVAL", None)
+    if pipe is not None:
+        out["pipeline"] = _mesh_pipeline(pipe, "mesh", dev)
+    return out
+
+
+def _mesh_pipeline(pipe, tag, dev):
+    """``run_fleet_mcmc`` on the six targets of ``pipe`` with dirnames ``{tag}{i}``, on K5;
+    returns the launch counts, the census and the wall time."""
+    from mcmc_spec_tpu_torch import fleet_pipeline
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.parallel import mesh as pm
+    from mcmc_spec_tpu_torch.utils.config import FitConfig
+
+    cwd = os.getcwd()
+    os.chdir(pipe["root"])
+    _route("K5")
+    try:
+        cfgs = []
+        for i, param in enumerate(pipe["params"]):
+            cfg = FitConfig.from_file(param)
+            cfg.dirname = f"{tag}{i}"
+            cfgs.append(cfg)
+        ctxs = fleet_pipeline.setup_fleet(cfgs, dtype=torch.float32, device=dev)
+        _sync(dev)
+        ck.reset_launches()
+        pm.reset_collectives()
+        t0 = time.perf_counter()
+        fleet_pipeline.run_fleet_mcmc(ctxs, p0s=pipe["p0s"], nthin=PIPE_NTHIN,
+                                      return_samples=False)
+        _sync(dev)
+        return {"launches": dict(ck.LAUNCHES), "census": pm.collective_counts(),
+                "wall": time.perf_counter() - t0}
+    finally:
+        os.environ.pop("MCMC_SPEC_FUSED_EVAL", None)
+        os.chdir(cwd)
+
+
+def fleet_mesh_phase(dev, smi, fit):
+    """Phase 14 (a) and (b): the fleet chain on the 3x1, 1x4 and 2x2 worlds on this card
+    against the one-card chain, and run_fleet_mcmc's samples.txt on the 2x2 world against
+    the one-card run's; then (c), (d) and (e) (``host_modules_checks``)."""
+    from mcmc_spec_tpu_torch import testing
+    from mcmc_spec_tpu_torch.bench_target import init_walker_batch
+    from mcmc_spec_tpu_torch.inference.fleet import init_fleet_ensemble, run_fleet_ensemble
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.testing import run_world
+
+    t_phase = time.perf_counter()
+    fleet, singles, truth = build_fleet(dev)
+    P = torch.stack([init_walker_batch(t, truth, NW_FLEET, seed=1 + i)
+                     for i, t in enumerate(singles)])
+    fields, P_host = _port_fields(fleet), P.cpu().numpy()
+    # the one-card chains: 16 steps at thin 8 from the same generator, nine and six targets
+    ref, ref_launches = {}, {}
+    for ntgt in (NTGT, MESH_PIPE_NTGT):
+        f = _rank_fleet(fields, ntgt, dev)
+        for route, kernel in MESH_ROUTES:
+            _route(route)
+            st = init_fleet_ensemble(P[:ntgt], f, torch.Generator(device=dev).manual_seed(5))
+            lp0 = st.log_prob
+            ck.reset_launches()
+            st, chain, _ = run_fleet_ensemble(st, f, MESH_STEPS, thin=MESH_THIN)
+            _sync(dev)
+            ref[(ntgt, route)] = (chain.cpu().numpy(), lp0.cpu().numpy(), int(st.n_accept))
+            ref_launches[(ntgt, route)] = ck.LAUNCHES[kernel]
+    os.environ.pop("MCMC_SPEC_FUSED_EVAL", None)
+
+    # (b)'s fit directories beside phase 11's, over its grid cache; the one-card run
+    fds = testing.write_fleet_dirs(fit["root"], FLEET_PIPE_ND[:MESH_PIPE_NTGT],
+                                   FLEET_PIPE_NC[:MESH_PIPE_NTGT], nwalk=3 * MESH_PIPE_NW,
+                                   nburn=MESH_PIPE_NBURN, nsteps=MESH_PIPE_NSTEPS)
+    scale = np.array([40.0, 40.0, 0.01, 0.01, 0.01, 0.02e-3])
+    pipe = {"root": fit["root"], "params": [fd["paramfile"] for fd in fds],
+            "p0s": [fd["truth"] + scale * np.random.RandomState(i).randn(MESH_PIPE_NW, 6)
+                    for i, fd in enumerate(fds)]}
+    one = _mesh_pipeline(pipe, "one", dev)
+
+    walls = {}
+    worlds = {}
+    for n in MESH_WORLDS:
+        t0 = time.perf_counter()
+        worlds[n] = run_world(_fleet_mesh_rank, n, fields, P_host, str(dev),
+                              pipe if n == 4 else None)
+        walls[f"world of {n}"] = time.perf_counter() - t0
+
+    report = {"launches": {}, "walls": walls, "k4": {}}
+    for n, meshes in MESH_WORLDS.items():
+        for T, W, ntgt in meshes:
+            for route, kernel in MESH_ROUTES:
+                chain, lp0, n_acc = ref[(ntgt, route)]
+                for rank, out in enumerate(worlds[n]):
+                    o = out[(T, W, route)]
+                    same = np.array_equal(o["chain"], chain) and o["n_accept"] == n_acc
+                    moved = int((o["chain"][-1] != chain[-1]).any(axis=-1).sum())
+                    outside, rel, _ = compare(torch.as_tensor(o["lp0"]).flatten(),
+                                              torch.as_tensor(lp0).flatten())
+                    want = {"all_gather": 2 * MESH_STEPS, "all_reduce_sum": 1,
+                            "all_reduce_min": 0, "barrier": 0}
+                    if rank == 0:
+                        print(f"[fleet mesh {T}x{W} {route}] rank 0 of {n} on {smi}: {ntgt} "
+                              f"targets x {NW_FLEET} walkers (block {o['block'][0]} targets), "
+                              f"{MESH_STEPS} steps at thin {MESH_THIN}: the chain "
+                              + ("bit for bit the one-card run_fleet_ensemble" if same else
+                                 f"differs from the one-card chain ({moved} of {ntgt * NW_FLEET} "
+                                 "final walkers)")
+                              + f", {o['n_accept']} moves accepted (one card {n_acc}); initial "
+                              f"log-probs {outside} walkers outside the kernel gate (max rel "
+                              f"{rel:.3g}); {kernel} {o['launches'][kernel]} launches a rank "
+                              f"(one card {ref_launches[(ntgt, route)]}); collectives "
+                              f"{o['census']}; {o['wall']:.2f} s")
+                    require(o["census"] == want, f"fleet mesh {T}x{W} {route} rank {rank}: "
+                            f"collectives {o['census']}, expected {want}")
+                    require(o["launches"][kernel] == 2 * MESH_STEPS,
+                            f"fleet mesh {T}x{W} {route} rank {rank}: {kernel} launched "
+                            f"{o['launches'][kernel]} times, expected {2 * MESH_STEPS}")
+                    require(outside == 0, f"fleet mesh {T}x{W} {route} rank {rank}: {outside} "
+                            "initial log-probs outside the kernel gate")
+                    # K5 computes each walker's whole posterior in its warp: bit for bit on any
+                    # mesh.  K4's route computes the blend weights with torch ops on the rank's
+                    # batch, whose rows cuBLAS may round otherwise at another batch size
+                    require(same or route == "K4", f"fleet mesh {T}x{W} {route} rank {rank}: "
+                            "the chain differs from the one-card chain")
+                    report["launches"][(T, W, route)] = o["launches"][kernel]
+                    if route == "K4" and rank == 0:
+                        report["k4"][(T, W)] = (same, moved, rel)
+    if not all(v[0] for v in report["k4"].values()):
+        # the composed route's ops whose rows change with the batch on the card
+        from mcmc_spec_tpu_torch.scripts import batch_rows
+
+        rows = batch_rows.main(str(dev))
+        report["k4_ops"] = {op: c for op, c in rows.items() if any(c.values())}
+        found = [op + " (" + ", ".join(f"{r} of {b} rows in {n} shares"
+                                       for (b, n), r in c.items() if r) + ")"
+                 for op, c in report["k4_ops"].items()]
+        print("[fleet mesh K4] the ops whose rows a share of the one card's batch rounds "
+              "otherwise: " + "; ".join(found))
+
+    # (b) every target's samples.txt byte for byte
+    same = []
+    for i in range(MESH_PIPE_NTGT):
+        with open(os.path.join(fit["root"], f"one{i}", "samples.txt"), "rb") as a, \
+                open(os.path.join(fit["root"], f"mesh{i}", "samples.txt"), "rb") as b:
+            same.append(a.read() == b.read())
+    mp = worlds[4][0]["pipeline"]
+    k5 = "log_posterior_fleet_fused"
+    print(f"[fleet mesh pipeline] run_fleet_mcmc on K5, {MESH_PIPE_NTGT} targets x "
+          f"{MESH_PIPE_NW} walkers, burn-in {MESH_PIPE_NBURN} and {MESH_PIPE_NSTEPS} steps, on "
+          f"the 2x2 world: {sum(same)} of {len(same)} samples.txt identical to the one-card "
+          f"run's; K5 {mp['launches'][k5]} launches on rank 0 (one card {one['launches'][k5]}), "
+          f"collectives {mp['census']}; {mp['wall']:.2f} s on rank 0, {one['wall']:.2f} s on "
+          "one card")
+    require(all(same), "a target's samples.txt on the 2x2 world differs from the one-card run's")
+    chunks = max(MESH_PIPE_NBURN // PIPE_NTHIN, 1) + MESH_PIPE_NSTEPS // PIPE_NTHIN
+    want = {"all_gather": chunks * (2 * PIPE_NTHIN + 2), "all_reduce_sum": chunks,
+            "all_reduce_min": 0, "barrier": 2}
+    require(mp["census"] == want, f"the 2x2 run_fleet_mcmc's collectives {mp['census']}, "
+            f"expected {want}")
+    # the one card evaluates the whole fleet each half-step, a 2x2 rank its block
+    require(mp["launches"][k5] == one["launches"][k5] > 0, "the 2x2 run_fleet_mcmc's K5 "
+            f"launches {mp['launches'][k5]}, the one card's {one['launches'][k5]}")
+    report["pipeline"] = {"one": one, "mesh": mp}
+    walls["(a) and (b)"] = time.perf_counter() - t_phase
+    report["host"] = host_modules_checks(dev, smi, fit, walls)
+    walls["phase"] = time.perf_counter() - t_phase
+    print(f"[fleet mesh] {smi}: wall times (s) " + ", ".join(f"{k} {v:.1f}"
+                                                            for k, v in walls.items()))
+    return report
+
+
+def host_modules_checks(dev, smi, fit, walls):
+    """Phase 14 (c)-(e): EnsembleSampler against run_ensemble, both examples, the analysis
+    CLI; returns their launch counts."""
+    from mcmc_spec_tpu_torch.bench_target import build_bench_target, init_walker_batch
+    from mcmc_spec_tpu_torch.examples import fit_synthetic_binary, spec_sharded_fit
+    from mcmc_spec_tpu_torch.inference.batched import log_posterior_batch
+    from mcmc_spec_tpu_torch.inference.sampler_api import EnsembleSampler
+    from mcmc_spec_tpu_torch.inference.stretch import init_ensemble, run_ensemble
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+
+    out = {}
+    # (c) the sampler facade on the bench target (koi2298 widths), two blocks
+    t0 = time.perf_counter()
+    tgt, truth = build_bench_target(torch.float32, device=dev)
+    P = init_walker_batch(tgt, truth, SAMPLER_NW)
+    logp = lambda b: log_posterior_batch(b, tgt)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    s = EnsembleSampler(SAMPLER_NW, 6, logp, seed=9, device=dev)
+    s.run_mcmc(P.cpu().numpy(), SAMPLER_BLOCKS[0], thin_by=SAMPLER_THIN)
+    s.run_mcmc(None, SAMPLER_BLOCKS[1], thin_by=SAMPLER_THIN)
+    torch.cuda.synchronize()
+    k1 = ck.LAUNCHES["log_posterior_fused"]
+    state = init_ensemble(P, logp, torch.Generator(device=dev).manual_seed(9))
+    chains = []
+    for n in SAMPLER_BLOCKS:
+        state, chain, _ = run_ensemble(state, logp, n, thin=SAMPLER_THIN)
+        chains.append(chain.cpu().numpy())
+    same = np.array_equal(s.get_chain(), np.concatenate(chains))
+    af = s.acceptance_fraction[0]
+    steps = sum(SAMPLER_BLOCKS)
+    print(f"[EnsembleSampler] {smi}: {SAMPLER_NW} walkers x nd={tgt.n_data}, run_mcmc blocks "
+          f"{SAMPLER_BLOCKS} at thin {SAMPLER_THIN}: the chain "
+          f"{'bit for bit' if same else 'DIFFERENT from'} run_ensemble from the same seed, "
+          f"acceptance {af:.3f} (run_ensemble {int(state.n_accept) / (SAMPLER_NW * steps):.3f}),"
+          f" K1 {k1} launches (expected {1 + 2 * steps}); {time.perf_counter() - t0:.2f} s")
+    require(same and int(state.n_accept) == round(af * SAMPLER_NW * steps),
+            "EnsembleSampler's chain differs from run_ensemble's")
+    require(k1 == 1 + 2 * steps, f"EnsembleSampler launched K1 {k1} times, expected "
+            f"{1 + 2 * steps}")
+    out["sampler"] = {"log_posterior_fused": k1}
+    walls["(c) sampler"] = time.perf_counter() - t0
+
+    # (d) the examples through their mains
+    t0 = time.perf_counter()
+    ck.reset_launches()
+    outdir = os.path.join(fit["root"], "example_out")
+    ex = fit_synthetic_binary.main(outdir, noplots=True, device=str(dev), **EXAMPLE_FIT_KW)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+    flat = ex.get_chain(flat=True)
+    print(f"[example fit_synthetic_binary --noplots] {smi}: {flat.shape[0]} samples, finite "
+          f"{bool(np.isfinite(flat).all())}, acceptance {ex.acceptance_fraction[0]:.3f}, launches "
+          f"{launches}; {time.perf_counter() - t0:.2f} s")
+    require(np.isfinite(flat).all() and 0.05 < ex.acceptance_fraction[0] < 0.95,
+            "fit_synthetic_binary: non-finite samples or acceptance outside (0.05, 0.95)")
+    require(launches.get("spectrum_chi2", 0) > 0 and launches.get("log_posterior_fused", 0) > 0
+            and set(launches) == {"spectrum_chi2", "log_posterior_fused"},
+            f"fit_synthetic_binary launched {launches}, expected K3 and K1 only")
+    out["fit_example"] = launches
+    walls["(d) fit_synthetic_binary"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = spec_sharded_fit.main(EXAMPLE_SHARD_ARGS)
+    lanes = {k: v for k, v in res["launches"].items() if v}
+    print(f"[example spec_sharded_fit {' '.join(EXAMPLE_SHARD_ARGS)}] {smi}: a 2x2 gloo world "
+          f"on this card: best chi2 {res['chi2']:.2f}, acceptance {res['acceptance']:.2f}, max "
+          f"|sharded - single-card| log-posterior {res['max_logp_err']:.3g}, rank 0's launches "
+          f"{lanes}; {time.perf_counter() - t0:.2f} s")
+    want = {"model_extinct", "median_round", "median_refine", "median_finish", "renorm_partials",
+            "resid_chi2"}
+    require(set(lanes) == want, f"spec_sharded_fit launched {sorted(lanes)}, expected "
+            f"{sorted(want)}")
+    require(0.05 < res["acceptance"] < 0.95 and np.isfinite(res["medians"]).all(),
+            "spec_sharded_fit: acceptance outside (0.05, 0.95) or non-finite medians")
+    out["shard_example"] = lanes
+    walls["(d) spec_sharded_fit"] = time.perf_counter() - t0
+
+    # (e) the analysis CLI in a process of its own, on result directories and catalogs written
+    # here (without pandas, which this machine may not have)
+    t0 = time.perf_counter()
+    from mcmc_spec_tpu_torch.analysis.table import Table
+    from mcmc_spec_tpu_torch.testing import write_result_dir
+
+    root = os.path.join(fit["root"], "analysis")
+    os.makedirs(root)
+    for i, name in enumerate(ANALYSIS_SYSTEMS):
+        write_result_dir(root, name, seed=i)
+    Table({"system": np.array(ANALYSIS_SYSTEMS, dtype=object),
+           "kep_teff": np.array([5100.0, 6000.0, 4700.0]), "kep_teff_err": np.full(3, 90.0),
+           "kep_rstar": np.array([0.9, 1.2, 0.72]), "kep_rstar_err": np.full(3, 0.05),
+           "kep_mstar": np.array([0.85, 1.1, 0.76])}).to_csv(os.path.join(root, "stars.csv"))
+    Table({"system": np.array(["2298", "2298", "0268", "0042"], dtype=object),
+           "pname": np.array(["2298.01", "2298.02", "268.01", "42.01"], dtype=object),
+           "radius": np.array([2.1, 1.1, 3.0, 1.6]), "radius_err": np.full(4, 0.15),
+           "teq": np.array([700.0, 500.0, 900.0, 650.0]),
+           "period": np.array([0.0274, 0.1, 0.01, 0.0605]), "period_err": np.full(4, 5e-5)}
+          ).to_csv(os.path.join(root, "planets.csv"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-m", "mcmc_spec_tpu_torch.analysis", "--results",
+         os.path.join(root, "koi*"), "--star-catalog", os.path.join(root, "stars.csv"),
+         "--planet-catalog", os.path.join(root, "planets.csv"), "--out",
+         os.path.join(root, "out"), "--no-plots"],
+        capture_output=True, text=True, env=env, timeout=300)
+    require(proc.returncode == 0, f"the analysis CLI failed: {proc.stderr[-3000:]}")
+    ds = Table.read_csv(os.path.join(root, "out", "derived_star.csv"))
+    dp = Table.read_csv(os.path.join(root, "out", "derived_planet.csv"))
+    missing = [m for m in ("pandas", "sklearn", "matplotlib")
+               if subprocess.run([sys.executable, "-c", f"import {m}"],
+                                 capture_output=True).returncode]
+    print(f"[analysis] python -m mcmc_spec_tpu_torch.analysis --no-plots on this machine (not "
+          f"importable here: {missing or 'none of pandas, sklearn, matplotlib'}): "
+          f"derived_star.csv {len(ds)} rows, derived_planet.csv {len(dp)} rows, finite revised "
+          f"radii {bool(np.isfinite(dp['rp']).all())}; {time.perf_counter() - t0:.2f} s")
+    require(len(ds) == 3 and len(dp) == 4 and np.isfinite(dp["rp"]).all(),
+            "the analysis CLI's tables are not the expected 3 stars and 4 planets")
+    walls["(e) analysis"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s = {}
@@ -3088,6 +3478,7 @@ def main() -> int:
         pipe = timed("pipeline", pipeline_phase, dev, smi, fit_root)
         fpipe = timed("fleet pipeline", fleet_pipeline_phase, dev, smi)
         shard = timed("sharding", sharding_phase, dev, smi, pipe["fit"])
+        mesh = timed("fleet mesh and host modules", fleet_mesh_phase, dev, smi, pipe["fit"])
     finally:
         shutil.rmtree(fit_root, ignore_errors=True)
     probes_s = phase_s["probes"]
@@ -3210,6 +3601,19 @@ def main() -> int:
                       "ms_4way": shard["times"][4][r["name"]][0],
                       "ms_alone_4way": shard["times"][4][r["name"]][1],
                       "bound_ms_4way": shard["times"][4][r["name"]][3][0]})
+    # phase 14: K4's and K5's launches on rank 0 of the 1x4 world and K5's in the 2x2
+    # run_fleet_mcmc; K1's in the sampler facade, K1's and K3's in fit_synthetic_binary
+    for r in report:
+        for route, kernel in MESH_ROUTES:
+            if r["name"] == kernel:
+                r["launches_fleet_mesh"] = mesh["launches"][(1, 4, route)]
+        if r["name"] == "log_posterior_fleet_fused":
+            r["launches_fleet_mesh_pipeline"] = \
+                mesh["pipeline"]["mesh"]["launches"]["log_posterior_fleet_fused"]
+        if r["name"] == "log_posterior_fused":
+            r["launches_sampler"] = mesh["host"]["sampler"]["log_posterior_fused"]
+        if r["name"] in ("log_posterior_fused", "spectrum_chi2"):
+            r["launches_example"] = mesh["host"]["fit_example"][r["name"]]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

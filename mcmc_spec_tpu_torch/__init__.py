@@ -10,3 +10,5 @@ plain PyTorch version; on CUDA tensors it launches the kernel or raises.
 """
 
 __version__ = "0.1.0"
+
+from mcmc_spec_tpu_torch.utils.config import FitConfig  # noqa: F401

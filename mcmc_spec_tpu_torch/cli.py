@@ -6,7 +6,7 @@ Port of ``mcmc_spec_tpu.cli`` with the same options: ``-f`` parameter file,
 ``--dtype``, ``--mesh auto|off|WxS``, ``--data-dir``, ``--grid-dir`` and
 ``--bps-dir``.  ``--device`` (default ``cuda``) picks the device; ``--device
 cpu`` runs the whole fit on the CPU.  Repeating ``-f`` fits all the named
-targets as one fleet (``fleet_pipeline.run_fleet``), on one device.
+targets as one fleet (``fleet_pipeline.run_fleet``).
 
 Sharding runs one process per rank under ``torchrun`` (``python -m
 torch.distributed.run``), which sets ``WORLD_SIZE``, ``RANK`` and
@@ -14,9 +14,14 @@ torch.distributed.run``), which sets ``WORLD_SIZE``, ``RANK`` and
 one card per rank (``cuda:LOCAL_RANK``), or gloo with ``--device cpu``.
 ``--mesh WxS`` (``W * S`` ranks) shards the walkers W ways and the data axis
 S ways in both stages; ``--mesh auto`` (the default) shards stage 2's walkers
-over all the ranks.  A ``WxS`` mesh of several ranks outside ``torchrun``, or
-more ranks than cards, exits before any compute with the command to use; a
-``1x1`` mesh outside ``torchrun`` runs in a process group of one.
+over all the ranks.  A fleet under ``torchrun`` with ``--mesh auto`` runs its
+stage 2 on a ``targets x walkers`` mesh of the ranks
+(``fleet_pipeline.resolve_fleet_mesh``: ``torchrun --nproc-per-node N -m
+mcmc_spec_tpu_torch.cli -f a -f b ...``) and its stage 1 on rank 0; a ``WxS``
+mesh is single-target only, as in JAX.  A ``WxS`` mesh of several ranks outside
+``torchrun``, ``--mesh off`` under several ranks, or more ranks than cards,
+exits before any compute with the command to use; a ``1x1`` mesh outside
+``torchrun`` runs in a process group of one.
 
 The report stage needs matplotlib: without it a run that asks for plots
 exits before any compute.  Only rank 0 writes files and plots.
@@ -116,9 +121,12 @@ def main(argv=None):
                 mesh = low
     wxs = parse_wxs(mesh)
     if wxs is not None and len(parfiles) > 1:
+        # JAX's words (mcmc_spec_tpu/cli.py): a fleet shards (targets, walkers)
         raise SystemExit(
-            f"--mesh: {mesh!r} (walkers x spec) is single-target only, and the fleet "
-            "pipeline runs its targets on one device; fit WxS targets one at a time")
+            f"--mesh: {mesh!r} (walkers x spec) is single-target only; "
+            "fleet mode shards (targets, walkers) — run WxS fits one "
+            "target at a time (see PARITY.md, fleet x spec scope note)"
+        )
     under_torchrun = "WORLD_SIZE" in os.environ
     nranks = int(os.environ.get("WORLD_SIZE", "1"))
     if wxs is not None and wxs[0] * wxs[1] > 1 and not under_torchrun:
@@ -127,10 +135,10 @@ def main(argv=None):
             f"{wxs[0] * wxs[1]} ranks: {_launch_line(argv, wxs[0] * wxs[1])}")
     if not parfiles:
         raise SystemExit(USAGE)
-    if nranks > 1 and (len(parfiles) > 1 or mesh is None):
+    if nranks > 1 and mesh is None:
         raise SystemExit(
-            f"{nranks} ranks: the fleet pipeline and --mesh off run on one device; run "
-            "them without torchrun")
+            f"{nranks} ranks: the fits of --mesh off run on one device; run them without "
+            "torchrun")
     run_opt, run_emcee = do_opt == "True", do_emcee == "True"
     if (run_opt or run_emcee) and not noplots:
         try:
@@ -156,15 +164,8 @@ def main(argv=None):
         for cfg in cfgs:
             setattr(cfg, attr, val)
 
-    if len(cfgs) > 1:
-        from mcmc_spec_tpu_torch.fleet_pipeline import run_fleet
-
-        # the chain streams to samples.txt and the reports re-read it per target
-        run_fleet(cfgs, optimize=run_opt, emcee=run_emcee, noplots=noplots, dtype=dtype,
-                  device=device)
-        return
-
-    # a WxS mesh with bad walker counts must fail now, not after the optimize stage
+    # a WxS mesh (single-target only) with bad walker counts must fail now, not after the
+    # optimize stage
     try:
         check_wxs_stage_counts(cfgs[0].nwalk, mesh, run_opt, run_emcee)
     except ValueError as e:
@@ -175,7 +176,14 @@ def main(argv=None):
         _init_process_group(device, under_torchrun)
         device = str(rank_device(device))
     try:
-        _fit(cfgs[0], run_opt, run_emcee, noplots, dtype, device, mesh)
+        if len(cfgs) > 1:
+            from mcmc_spec_tpu_torch.fleet_pipeline import run_fleet
+
+            # the chain streams to samples.txt and the reports re-read it per target
+            run_fleet(cfgs, optimize=run_opt, emcee=run_emcee, noplots=noplots, dtype=dtype,
+                      device=device, mesh=mesh)
+        else:
+            _fit(cfgs[0], run_opt, run_emcee, noplots, dtype, device, mesh)
     finally:
         if distributed:
             dist.destroy_process_group()

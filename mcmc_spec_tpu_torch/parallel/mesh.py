@@ -23,6 +23,18 @@ Every collective of the sharded paths goes through ``all_reduce`` and
 census counterpart of the kernels' launch counts (``ops.cuda_kernels``).
 A mesh of one rank runs the same collectives on its group of one, so the
 census does not depend on the mesh size.
+
+A fleet (many targets, ``fleet_pipeline``) lays the ranks out as a
+``targets x walkers`` mesh instead (``make_fleet_mesh``), target-major
+(``rank = t W + w``), as JAX reshapes its device list to ``(t_ax, w_ax)``:
+
+* a rank's **walker group**, the W ranks that share its block of targets: the
+  stretch move's complement gather and, first of the chain's two gathers for
+  the host, the chain's;
+* its **target group**, the T ranks that share its walker index: only the
+  second gather of the chain.
+
+The accept count is summed over the whole mesh (the default group).
 """
 from __future__ import annotations
 
@@ -92,6 +104,37 @@ class Mesh:
         return {"walkers": self.walkers, "spec": self.spec}
 
 
+@dataclasses.dataclass(frozen=True)
+class FleetMesh:
+    """This rank's place in a ``targets x walkers`` layout of the process group's ranks.
+
+    A class of its own rather than a :class:`Mesh`: the fleet's other axis is the
+    targets', not the data axis's, and ``Mesh.s_index``/``spec_group`` would name it
+    wrongly.  ``walkers``, ``w_index`` and ``walker_group`` mean what they mean on a
+    :class:`Mesh`, so ``parallel.sharding.walker_share`` takes either.
+    """
+
+    targets: int
+    walkers: int
+    rank: int
+    device: torch.device
+    walker_group: Any
+    target_group: Any
+    axis_names = ("targets", "walkers")
+
+    @property
+    def t_index(self) -> int:
+        return self.rank // self.walkers
+
+    @property
+    def w_index(self) -> int:
+        return self.rank % self.walkers
+
+    @property
+    def shape(self) -> dict:
+        return {"targets": self.targets, "walkers": self.walkers}
+
+
 def world() -> tuple[int, int]:
     """(rank, world size) of the default process group; (0, 1) without one."""
     if not dist.is_initialized():
@@ -128,6 +171,25 @@ def make_mesh(walkers: int, spec: int = 1, device=None,
     spec_groups = [dist.new_group([w * spec + s for s in range(spec)]) for w in range(walkers)]
     return Mesh(walkers, spec, rank, rank_device(device), tuple(axis_names),
                 walker_groups[rank % spec], spec_groups[rank // spec])
+
+
+def make_fleet_mesh(targets: int, walkers: int, device=None) -> FleetMesh:
+    """The ``targets x walkers`` mesh over the ranks of the initialised default group,
+    target-major (``rank = t * walkers + w``).  Every rank must call it, as ``make_mesh``; raises ``ValueError``
+    where ``targets * walkers`` is not the world size."""
+    if not dist.is_initialized():
+        raise ValueError("make_fleet_mesh needs an initialised torch.distributed process "
+                         "group (torchrun, or dist.init_process_group)")
+    rank, size = world()
+    if targets * walkers != size:
+        raise ValueError(f"a {targets}x{walkers} fleet mesh needs {targets * walkers} ranks, "
+                         f"the process group has {size}")
+    walker_groups = [dist.new_group([t * walkers + w for w in range(walkers)])
+                     for t in range(targets)]
+    target_groups = [dist.new_group([t * walkers + w for t in range(targets)])
+                     for w in range(walkers)]
+    return FleetMesh(targets, walkers, rank, rank_device(device),
+                     walker_groups[rank // walkers], target_groups[rank % walkers])
 
 
 def free_port() -> int:

@@ -22,6 +22,20 @@ A spectral-sharded chain (``parallel.spec_shard.run_ensemble_spec_sharded``)
 runs this loop with its per-rank log-posterior as ``log_prob_fn``: without
 ``shard_map`` there is no sharded input to thread through, which is what
 JAX's ``extra`` / ``logp_factory`` hook does.
+
+The fleet over a ``targets x walkers`` mesh (``parallel.mesh.FleetMesh``,
+``run_fleet_ensemble_sharded``): a rank holds ``[2, ntgt/T, nh/W, ndim]``, its
+block of targets and, in each half, its walkers' share as above.  It evaluates
+its block on its own slice of the padded stacked fleet (``fleet_block``: the
+fleet's padded widths, so the fleet kernels K4/K5 see the one-device run's
+``nd``, ranks and ``1/n_true``).  Each chunk's draws are made at the full
+``[thin, 2, ntgt, nh]`` size from the same generator on every rank, in the
+one-device order (``inference.fleet._draw_fleet_chunk``), and sliced, so the
+sharded fleet chain is ``run_fleet_ensemble``'s on any mesh.  The collectives:
+one ``all_gather`` of the complement half over the walker group a half-step,
+and one ``all_reduce`` of the accept count over the whole mesh a call, as JAX's
+global ``jnp.sum(accept)``.  ``gather_fleet`` brings a sharded array to every
+rank in two more: over the walker group, then over the target group.
 """
 from __future__ import annotations
 
@@ -29,8 +43,10 @@ from typing import Callable
 
 import torch
 
+import dataclasses
+
 from mcmc_spec_tpu_torch.inference.stretch import EnsembleState, _draw_chunk, _propose_accept
-from mcmc_spec_tpu_torch.parallel.mesh import Mesh, all_gather, all_reduce
+from mcmc_spec_tpu_torch.parallel.mesh import FleetMesh, Mesh, all_gather, all_reduce
 
 
 def walker_share(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -121,5 +137,104 @@ def _sharded_steps(state: EnsembleState, log_prob_fn: Callable, mesh: Mesh, n_st
         chain.append(torch.stack(c))
         logps.append(torch.stack(lp))
     n_acc = state.n_accept + all_reduce(n_acc, mesh.walker_group)
+    return (EnsembleState(torch.stack(c), torch.stack(lp), gen, n_acc), torch.stack(chain),
+            torch.stack(logps))
+
+
+# ---------------------------------------------------------------------------
+# the fleet over a targets x walkers mesh (inference.fleet is imported where it is used:
+# it imports the kernels' modules, which import parallel.mesh and so this package)
+
+
+def _target_block(ntgt: int, mesh: FleetMesh) -> slice:
+    if ntgt % mesh.targets:
+        raise ValueError(f"ntgt={ntgt} must divide by {mesh.targets}")
+    n = ntgt // mesh.targets
+    return slice(mesh.t_index * n, (mesh.t_index + 1) * n)
+
+
+def fleet_block(fleet, mesh: FleetMesh):
+    """This rank's targets of the padded stacked ``fleet``: every field sliced along the
+    target axis, the padded widths kept.  On the card the fleet kernels' tables are
+    built here, once, for the slice."""
+    from mcmc_spec_tpu_torch.inference.target import DATA_FIELDS
+    from mcmc_spec_tpu_torch.ops import cuda_kernels
+
+    tb = _target_block(fleet.D.shape[0], mesh)
+    block = dataclasses.replace(fleet, **{k: getattr(fleet, k)[tb] for k in DATA_FIELDS})
+    if block.device.type == "cuda":
+        cuda_kernels.fleet_kernel_tables(block)
+    return block
+
+
+def fleet_share(x: torch.Tensor, mesh: FleetMesh) -> torch.Tensor:
+    """This rank's ``[2, ntgt/T, nh/W, ...]`` share of a ``[ntgt, nw, ...]`` fleet array."""
+    tb = _target_block(x.shape[0], mesh)
+    share = walker_share(x[tb].movedim(1, 0), mesh)  # [2, nh/W, ntgt/T, ...]
+    return share.movedim(2, 1).contiguous()
+
+
+def gather_fleet(x: torch.Tensor, mesh: FleetMesh, dim: int = 1) -> torch.Tensor:
+    """The ranks' shares ``x`` (``[..., 2, ntgt/T, nh/W, ...]``, the target axis at
+    ``dim``) gathered into the flat ``[..., ntgt, nw, ...]`` on every rank: over the
+    walker group, then over the target group."""
+    x = all_gather(x, mesh.walker_group, dim=dim + 1)
+    x = all_gather(x, mesh.target_group, dim=dim)  # [..., 2, ntgt, nh, ...]
+    x = x.movedim(dim - 1, dim)
+    return x.reshape(*x.shape[:dim], -1, *x.shape[dim + 2:])
+
+
+def shard_fleet_state(coords, block, generator: torch.Generator,
+                      mesh: FleetMesh) -> EnsembleState:
+    """The sharded twin of ``init_fleet_ensemble``: this rank's share of the
+    ``[ntgt, nw, ndim]`` ``coords`` (on every rank), its log-posteriors evaluated on its
+    block (``fleet_block``)."""
+    from mcmc_spec_tpu_torch.inference.fleet import log_posterior_fleet
+
+    coords = torch.as_tensor(coords)
+    share = fleet_share(coords, mesh)  # [2, ntl, nhl, ndim]
+    _, ntl, nhl, ndim = share.shape
+    logp = log_posterior_fleet(share.movedim(0, 1).reshape(ntl, 2 * nhl, ndim), block)
+    return EnsembleState(share, logp.reshape(ntl, 2, nhl).movedim(1, 0).contiguous(),
+                         generator, torch.zeros((), dtype=torch.int64, device=coords.device))
+
+
+def local_fleet_state(coords, log_prob, generator: torch.Generator, n_accept,
+                      mesh: FleetMesh) -> EnsembleState:
+    """The sharded state of a fleet whose log-probs are known (a checkpoint's): this
+    rank's share of ``coords`` [ntgt, nw, ndim] and ``log_prob`` [ntgt, nw]."""
+    return EnsembleState(fleet_share(coords, mesh), fleet_share(log_prob, mesh), generator,
+                         torch.as_tensor(n_accept, dtype=torch.int64, device=coords.device))
+
+
+def run_fleet_ensemble_sharded(state: EnsembleState, block, mesh: FleetMesh, n_steps: int,
+                               thin: int = 1, a: float = 2.0):
+    """Distributed ``run_fleet_ensemble`` on this rank's ``block`` (``fleet_block``):
+    returns ``(state, chain [n_keep, 2, ntgt/T, nh/W, ndim], logps [n_keep, 2, ntgt/T,
+    nh/W])``, this rank's shares, with ``n_keep = max(n_steps // thin, 1)`` as in JAX."""
+    from mcmc_spec_tpu_torch.inference.fleet import _draw_fleet_chunk, log_posterior_fleet
+
+    c = [state.coords[0], state.coords[1]]  # [ntl, nhl, ndim]
+    lp = [state.log_prob[0], state.log_prob[1]]
+    ntl, nhl = c[0].shape[:2]
+    ntgt, nh = ntl * mesh.targets, nhl * mesh.walkers
+    tb = slice(mesh.t_index * ntl, (mesh.t_index + 1) * ntl)
+    mine = slice(mesh.w_index * nhl, (mesh.w_index + 1) * nhl)
+    gen, dev = state.generator, c[0].device
+    logp = lambda proposal: log_posterior_fleet(proposal, block)
+    n_acc = torch.zeros((), dtype=torch.int64, device=dev)
+    chain, logps = [], []
+    for _ in range(max(n_steps // thin, 1)):
+        z, idx, log_u = _draw_fleet_chunk(gen, thin, ntgt, 2 * nh, a, c[0].dtype, dev)
+        for s in range(thin):
+            for h in (0, 1):
+                comp = all_gather(c[1 - h], mesh.walker_group, dim=1)
+                c[h], lp[h], k = _propose_accept(c[h], lp[h], comp, z[s, h, tb, mine],
+                                                 idx[h][s, tb, mine], log_u[s, h, tb, mine],
+                                                 logp)
+                n_acc = n_acc + k
+        chain.append(torch.stack(c))
+        logps.append(torch.stack(lp))
+    n_acc = state.n_accept + all_reduce(n_acc, None)
     return (EnsembleState(torch.stack(c), torch.stack(lp), gen, n_acc), torch.stack(chain),
             torch.stack(logps))

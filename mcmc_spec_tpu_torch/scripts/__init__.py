@@ -37,6 +37,11 @@ compute (``csrc/launch_probe.cu``), each timed eager and as a CUDA graph:
 * ``dma_probe_bisect2``: every table read by every block, up to K1's operand
   multiset (S3 ``bisect2_probe``).
 
+and one check of the fleet mesh:
+
+* ``batch_rows``: the ops of the composed fleet route (K4's) whose rows a
+  share of the one device's batch rounds otherwise, with a count for each.
+
 Each ``main(device="cuda")`` runs on the card; ``device="cpu"`` runs the
 kernels' plain versions at the sizes given, with host-clock times.
 """

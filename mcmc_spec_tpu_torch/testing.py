@@ -27,6 +27,11 @@ and data length, over one shared set of curves and one grid cache.
 ``write_btsettl_dir`` writes a model grid in the BT-Settl directory format
 that ``SpectralGrid.from_btsettl_dir`` reads.
 
+``write_result_dir(root, name)`` writes a system's result directory as the
+population analysis reads it (``python -m mcmc_spec_tpu_torch.analysis``):
+``samples.txt``, the radius-correction factors and the mass and luminosity
+posteriors, drawn from a seed.
+
 ``run_world(fn, nranks, *args)`` runs ``fn`` on every rank of a new
 ``torch.distributed`` process group of spawned processes (gloo by default) and
 returns their results: the sharded paths (``parallel``) checked in one call.
@@ -313,6 +318,25 @@ def write_btsettl_dir(grid_dir: str, temps, loggs=(4.0, 4.5, 5.0, 5.5),
             np.savetxt(path, np.column_stack([wl, synthetic_spectrum(wl, t, g)]))
             paths.append(path)
     return paths
+
+
+def write_result_dir(root: str, name: str, n: int = 400, seed: int = 0) -> str:
+    """``root/koi{name}``: a binary's posterior draws (6 columns) and the files the
+    population analysis reads beside ``samples.txt``; returns the directory."""
+    rng = np.random.RandomState(seed)
+    d = os.path.join(root, f"koi{name}")
+    os.makedirs(d)
+    t1, t2 = rng.normal(4800, 60, n), rng.normal(3500, 80, n)
+    av, r1 = np.abs(rng.normal(0.1, 0.02, n)), rng.normal(0.75, 0.03, n)
+    ratio, plx = rng.normal(0.45, 0.02, n), rng.normal(2e-3, 0.05e-3, n)
+    np.savetxt(os.path.join(d, "samples.txt"), np.column_stack([t1, t2, av, r1, ratio, plx]))
+    kc = rng.normal(2.5, 0.1, n)
+    np.savetxt(os.path.join(d, "pri_corr.txt"), np.sqrt(1 + 10 ** (-0.4 * kc)))
+    np.savetxt(os.path.join(d, "sec_corr.txt"), ratio * np.sqrt(1 + 10 ** (0.4 * kc)))
+    for fname, mu, sig in (("primary_mass", 0.78, 0.02), ("secondary_mass", 0.40, 0.02),
+                           ("primary_lum", 0.35, 0.02), ("secondary_lum", 0.03, 0.005)):
+        np.savetxt(os.path.join(d, f"{fname}_posterior.txt"), rng.normal(mu, sig, n))
+    return d
 
 
 def _world_rank(rank, fn, nranks, port, backend, outdir, timeout_s, args):

@@ -382,7 +382,7 @@ def test_cli_mesh_writes_the_artifact_set_from_rank_zero(cli_runs, name):
 @pytest.mark.parametrize("argv,env,message", [
     (["--mesh", "2x2"], {}, "torchrun --nproc-per-node 4 -m mcmc_spec_tpu_torch.cli -f p.txt"),
     (["--mesh", "off"], {"WORLD_SIZE": "2"}, "--mesh off run on one device"),
-    (["-f", "q.txt"], {"WORLD_SIZE": "2"}, "the fleet pipeline"),
+    (["-f", "q.txt", "--mesh", "off"], {"WORLD_SIZE": "2"}, "--mesh off run on one device"),
     (["--device", "cuda"], {"WORLD_SIZE": "2", "LOCAL_WORLD_SIZE": "2"},
      "2 ranks on this host, 1 CUDA devices"),
 ], ids=["wxs_outside_torchrun", "off_on_ranks", "fleet_on_ranks", "more_ranks_than_cards"])
