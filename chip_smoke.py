@@ -172,7 +172,17 @@ Phases, each of which exits non-zero on failure:
    on this card, depth cut to 2 annealer steps and 60 steps: K6, K7d, K8,
    K9);
    (e) ``python -m mcmc_spec_tpu_torch.analysis --no-plots`` over three
-   result directories in a process of its own, on this machine's packages.
+   result directories in a process of its own, on this machine's packages;
+15. the accuracy tools (``mcmc_spec_tpu_torch/scripts``): ``card_validation
+   --shapes-only`` in full (K3 and K1 at 600, 520 and 256 walkers for nd =
+   1,792 and 3,584, K4 and K5 on a padded fleet at 12 and 520 walkers, all at
+   the exact dials in the kernel gate of the torch composition), a hard gate;
+   ``median_tempering_bound`` at 4,096 walkers with the burn-in cut from 4,000
+   to 500 steps (dL per pass count on K1, the rates per pass count; K1's
+   launches exact); the recovery matrix's first fixture (3850, 3025) built
+   and fitted through the two-stage pipeline with ``nburn`` cut from 1,000 to
+   200 and ``nsteps`` from 10,000 to 2,000 (finite samples, K3's launches
+   exact, K1's counted).
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its bytes (each input read once, the
@@ -189,7 +199,8 @@ K5's carry ``launches_fleet_pipeline``, their counts in phase 12 (K5's in its
 resume pair); K4's and K5's carry ``launches_fleet_mesh``, their counts on
 rank 0 of phase 14's 1x4 world, and K5's ``launches_fleet_mesh_pipeline``;
 K1's carries ``launches_sampler``; K1's and K3's ``launches_example``, their
-counts in ``fit_synthetic_binary``.  K9's entry
+counts in ``fit_synthetic_binary``; K1's, K3's, K4's and K5's
+``launches_accuracy``, their counts in phase 15.  K9's entry
 (``ms`` with renorm) carries ``ms_raw`` and ``bound_ms_raw`` without renorm,
 and ``launches_raw`` and ``launches_renorm``.  The
 multiply chains of S10 count one operation per multiply and per add, so their
@@ -3452,6 +3463,96 @@ def host_modules_checks(dev, smi, fit, walls):
     return out
 
 
+# phase 15: the accuracy tools.  median_tempering_bound at its 4,096 walkers with the
+# burn-in cut from 4,000 to 500 steps; the recovery matrix's first fixture with nburn cut
+# from 1,000 to 200 and nsteps from 10,000 to 2,000 (the time limit)
+ACC_NBURN = 500
+RECOVERY_PAIR = (3850, 3025)
+RECOVERY_CUT = dict(nburn=200, nsteps=2000)
+
+
+def accuracy_phase(dev, smi, fit):
+    """Phase 15: ``card_validation --shapes-only`` (a hard gate), ``median_tempering_bound``
+    (depth cut) and the recovery matrix's first fixture through the pipeline (depth cut),
+    in ``fit``'s root, whose grid cache it shares; returns the kernels' launches."""
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.scripts import card_validation
+    from mcmc_spec_tpu_torch.scripts import median_tempering_bound as mtb
+    from mcmc_spec_tpu_torch.scripts import recovery_fixtures as rf
+    from mcmc_spec_tpu_torch.scripts import synth_recovery_matrix as sm
+
+    launches, walls = {}, {}
+    nonzero = lambda: {k: v for k, v in ck.LAUNCHES.items() if v}
+
+    # (a) the shape sweep of K1, K3, K4 and K5 at the exact dials
+    t0 = time.perf_counter()
+    rc = card_validation.main(["--shapes-only"], device=str(dev))
+    torch.cuda.synchronize()
+    launches["shapes"] = nonzero()
+    print(f"[card_validation --shapes-only] {smi}: exit {rc}, launches {launches['shapes']}; "
+          f"{time.perf_counter() - t0:.2f} s")
+    require(rc == 0, "card_validation --shapes-only: a kernel outside the gate")
+    want = {"spectrum_chi2": 6, "log_posterior_fused": 6, "spectrum_chi2_fleet": 2,
+            "log_posterior_fleet_fused": 2}
+    require(launches["shapes"] == want, f"the shape sweep launched {launches['shapes']}, "
+            f"expected {want}")
+    walls["(a) shapes"] = time.perf_counter() - t0
+
+    # (b) the tempering bound on K1: equilibrium at the exact dials, dL per pass count, rates
+    t0 = time.perf_counter()
+    out = mtb.main(device=str(dev), nburn=ACC_NBURN)
+    torch.cuda.synchronize()
+    launches["tempering"] = out["launches"]
+    k1 = (1 + 2 * ACC_NBURN + 1 + len(mtb.PASSES)
+          + len(mtb.RATE_PASSES) * (1 + 4 * mtb.RATE_STEPS))
+    std14 = out["dL"][14]["dL_std"]
+    print(f"[median_tempering_bound] {smi}: {mtb.NWALK} walkers, burn-in {ACC_NBURN} (cut from "
+          f"{mtb.NBURN}): dL std at k=14 {std14:.4g}, rates (M evals/s) "
+          + ", ".join(f"{k}: {r:.2f}" for k, r in out["rate_Mevals"].items())
+          + f"; launches {out['launches']} (K1 expected {k1}); {time.perf_counter() - t0:.2f} s")
+    require(out["launches"] == {"log_posterior_fused": k1},
+            f"median_tempering_bound launched {out['launches']}, expected K1 {k1} only")
+    require(all(np.isfinite(r["dL_std"]) for r in out["dL"].values()) and 0 < std14 < 1,
+            f"median_tempering_bound: dL std at k=14 {std14} not finite in (0, 1)")
+    walls["(b) tempering"] = time.perf_counter() - t0
+
+    # (c) the matrix's first fixture through the two-stage pipeline
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="recovery_", dir=fit["root"])
+    os.symlink(os.path.join(fit["root"], ".grid_cache"), os.path.join(work, ".grid_cache"))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        ref = rf.write_reference(os.path.join(work, "reference"))
+        t1, t2 = RECOVERY_PAIR
+        fx = sm.matrix_fixture(0, t1, t2, work, ref, str(dev))
+        ck.reset_launches()
+        ctx, samples = rf.fit(fx, str(dev), **RECOVERY_CUT)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    launches["recovery"] = nonzero()
+    _, sig, z = rf.z_scores(samples, fx.truth)
+    k3 = 1 + 50 * ctx.cfg.nstep // RECORD_THIN * RECORD_THIN
+    print(f"[synth_recovery_matrix fixture {t1}/{t2}] {smi}: nburn {RECOVERY_CUT['nburn']}, "
+          f"nsteps {RECOVERY_CUT['nsteps']} (cut from 1,000 / 10,000): {samples.shape[0]} "
+          f"samples, z " + " ".join(f"{lab}={v:+.2f}" for lab, v in zip(sm.LABELS, z))
+          + f"; launches {launches['recovery']} (K3 expected {k3}); "
+          f"{time.perf_counter() - t0:.2f} s")
+    require(np.isfinite(samples).all() and samples.shape[1] == 6 and (sig > 0).all(),
+            "the recovery fixture's samples are not finite with 6 columns")
+    require(set(launches["recovery"]) == {"spectrum_chi2", "log_posterior_fused"}
+            and launches["recovery"]["spectrum_chi2"] == k3,
+            f"the recovery fixture launched {launches['recovery']}, expected K3 {k3} and K1")
+    walls["(c) recovery fixture"] = time.perf_counter() - t0
+    print("[accuracy] " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    total = {}
+    for part in launches.values():
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s = {}
@@ -3479,6 +3580,7 @@ def main() -> int:
         fpipe = timed("fleet pipeline", fleet_pipeline_phase, dev, smi)
         shard = timed("sharding", sharding_phase, dev, smi, pipe["fit"])
         mesh = timed("fleet mesh and host modules", fleet_mesh_phase, dev, smi, pipe["fit"])
+        acc = timed("accuracy", accuracy_phase, dev, smi, pipe["fit"])
     finally:
         shutil.rmtree(fit_root, ignore_errors=True)
     probes_s = phase_s["probes"]
@@ -3614,6 +3716,9 @@ def main() -> int:
             r["launches_sampler"] = mesh["host"]["sampler"]["log_posterior_fused"]
         if r["name"] in ("log_posterior_fused", "spectrum_chi2"):
             r["launches_example"] = mesh["host"]["fit_example"][r["name"]]
+        # phase 15: the shape sweep, the tempering bound and the recovery fixture
+        if r["name"] in acc:
+            r["launches_accuracy"] = acc[r["name"]]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -44,4 +44,11 @@ and one check of the fleet mesh:
 
 Each ``main(device="cuda")`` runs on the card; ``device="cpu"`` runs the
 kernels' plain versions at the sizes given, with host-clock times.
+
+The accuracy and truth-recovery tools, counterparts of the JAX scripts of the
+same names: ``median_tempering_bound`` (and ``_cpu``), ``segmented_median_bound``,
+``fast_median_impact``, ``matmul_passes_impact``, ``mist_sensitivity``,
+``anneal_budget_divergence``, ``card_validation`` (for ``tpu_validation``) and
+the recovery fixtures (``recovery_fixtures``, ``synth_recovery_matrix``,
+``synth_recovery_extra``).
 """

@@ -32,6 +32,11 @@ population analysis reads it (``python -m mcmc_spec_tpu_torch.analysis``):
 ``samples.txt``, the radius-correction factors and the mass and luminosity
 posteriors, drawn from a seed.
 
+``make_setup(rad_prior)`` builds the JAX test suite's small synthetic fit
+target (``tests/helpers.py`` ``make_setup``): the same grid, data, filters,
+priors and random draws, with the observed contrasts and photometry taken
+from the port's scalar forward model (``inference.posterior.forward_summary``).
+
 ``run_world(fn, nranks, *args)`` runs ``fn`` on every rank of a new
 ``torch.distributed`` process group of spawned processes (gloo by default) and
 returns their results: the sharded paths (``parallel``) checked in one call.
@@ -337,6 +342,91 @@ def write_result_dir(root: str, name: str, n: int = 400, seed: int = 0) -> str:
                            ("primary_lum", 0.35, 0.02), ("secondary_lum", 0.03, 0.005)):
         np.savetxt(os.path.join(d, f"{fname}_posterior.txt"), rng.normal(mu, sig, n))
     return d
+
+
+def gaussian_filter_curve(name, center, width, n=300, span=4.0):
+    from mcmc_spec_tpu_torch.ops.photometry import FilterCurve
+
+    wl = np.linspace(center - span * width, center + span * width, n)
+    return FilterCurve(name=name, wl=wl, tr=np.exp(-0.5 * ((wl - center) / width) ** 2))
+
+
+def make_setup(rad_prior: bool = False, dtype=None, device="cpu"):
+    """(setup dict, PackedTarget): the JAX test suite's small binary fit target.
+
+    The 8x4 synthetic grid over 3,000-12,000 A at 1 A steps, 900 data points
+    over 0.652-0.838 um (the composite at the truth plus 1 % noise, from
+    ``RandomState(7)``), two contrast and three photometric Gaussian filters,
+    a constant Av prior and the parallax prior.  The observed contrasts and
+    photometry are ``forward_summary`` at the truth plus 0.02 mag noise, drawn
+    after the spectrum noise as in JAX.  ``dtype`` defaults to float64.
+    """
+    import torch
+
+    from mcmc_spec_tpu_torch.inference.posterior import forward_summary
+    from mcmc_spec_tpu_torch.inference.target import PC_CM, RSUN_CM, pack_target
+    from mcmc_spec_tpu_torch.models.dust import AvProfile
+    from mcmc_spec_tpu_torch.models.synthetic import synthetic_grid
+    from mcmc_spec_tpu_torch.ops.interp import bilinear_bracket, bilinear_gather_blend
+    from mcmc_spec_tpu_torch.ops.photometry import ab_zero_flux
+
+    dtype = torch.float64 if dtype is None else dtype
+    grid = synthetic_grid(specrange=(3000.0, 12000.0), data_window=(6450.0, 8400.0),
+                          resolution=1700, temps=np.arange(3000.0, 5801.0, 400.0),
+                          loggs=np.array([4.0, 4.5, 5.0, 5.5]), step=1.0)
+    rng = np.random.RandomState(7)
+    mist = MistTable.builtin()
+    truth = dict(t1=4600.0, t2=3400.0, av=0.15, r1=0.72, rr2=0.45, plx=2.0e-3)
+    data_wl_um = np.linspace(0.652, 0.838, 900)
+
+    flux64 = torch.as_tensor(grid.flux, dtype=torch.float64)
+    axis = lambda v: torch.as_tensor(v, dtype=torch.float64)
+
+    def comp_spec_full(t, g):
+        ti, tw = bilinear_bracket(axis(grid.temps), t)
+        gi, gw = bilinear_bracket(axis(grid.loggs), g)
+        return bilinear_gather_blend(flux64, ti, tw, gi, gw).numpy()
+
+    d_pc = 1.0 / truth["plx"]
+    s1 = (truth["r1"] * RSUN_CM / (d_pc * PC_CM)) ** 2
+    s2 = (truth["r1"] * truth["rr2"] * RSUN_CM / (d_pc * PC_CM)) ** 2
+    comp = (s1 * comp_spec_full(truth["t1"], float(mist.get_logg(truth["t1"])))
+            + s2 * comp_spec_full(truth["t2"], float(mist.get_logg(truth["t2"]))))
+    data_flux = np.interp(data_wl_um * 1e4, grid.wl, comp)
+    data_flux *= 1.0 + 0.01 * rng.randn(len(data_flux))
+    data_err = 0.01 * np.abs(data_flux)
+    med = np.median(data_flux)
+    data_flux, data_err = data_flux / med, data_err / med
+
+    cfilts = [gaussian_filter_curve("c600", 6000.0, 150.0),
+              gaussian_filter_curve("cK", 9500.0, 300.0)]
+    pfilts = [gaussian_filter_curve("p_r", 6250.0, 300.0),
+              gaussian_filter_curve("p_i", 7700.0, 350.0),
+              gaussian_filter_curve("p_z", 9100.0, 400.0)]
+    zps = [ab_zero_flux(photon_flux_weights(grid.wl, f.wl, f.tr)[1]) for f in pfilts]
+    av_profile = AvProfile.constant(truth["av"], 0.05)
+    p_truth = np.array([truth["t1"], truth["t2"], truth["av"], truth["r1"], truth["rr2"],
+                        truth["plx"]])
+    prior_mu, prior_sig = np.zeros(6), np.ones(6)
+    prior_mu[-1], prior_sig[-1] = truth["plx"], 0.05e-3
+    cerr, perr = np.full(len(cfilts), 0.05), np.full(len(pfilts), 0.05)
+
+    def pack(cmag, pmag, dtype, device):
+        return pack_target(grid, data_wl_um, data_flux, data_err, cfilts, cmag, cerr, pfilts,
+                           zps, pmag, perr, mist, av_profile, nspec=2, dist_fit=True,
+                           rad_prior=rad_prior, prior_mu=prior_mu, prior_sig=prior_sig,
+                           dtype=dtype, device=device)
+
+    # truth-adjacent observations, so that the chi^2 values are O(1); the forward model
+    # in float64 on the host, as the JAX suite's numpy emulator
+    placeholder = pack(np.zeros(len(cfilts)), np.zeros(len(pfilts)), torch.float64, "cpu")
+    summ = forward_summary(torch.as_tensor(p_truth, dtype=torch.float64), placeholder)
+    cmag = summ["contrasts"].numpy() + rng.normal(0, 0.02, len(cfilts))
+    pmag = summ["phot_mags"].numpy() + rng.normal(0, 0.02, len(pfilts))
+    setup = dict(grid=grid, mist=mist, truth=truth, p_truth=p_truth, data_wl_um=data_wl_um,
+                 data_flux=data_flux, data_err=data_err, cfilts=cfilts, pfilts=pfilts,
+                 zps=zps, cmag=cmag, cerr=cerr, pmag=pmag, perr=perr, av_profile=av_profile)
+    return setup, pack(cmag, pmag, dtype, device)
 
 
 def _world_rank(rank, fn, nranks, port, backend, outdir, timeout_s, args):
