@@ -59,8 +59,9 @@ Phases, each of which exits non-zero on failure:
    against their plain versions on the card (S10 multiply chains and S11 row
    median bit for bit, S11 also against ``torch.kthvalue``; S4 spectrum with
    the reciprocal dial at every dial, and against K3 at recip 0 in the gate;
-   S12 fused-posterior sections, every variant on 16,384 + 5 walkers at both
-   dial sets, and ``full`` against K1 in the gate), then the three
+   the fused-posterior section variants of ``ablate_fused_sections`` on S13,
+   every variant on 16,384 + 5 walkers at both dial sets, and ``full`` bit for
+   bit K1), then the three
    experiments' ``main()`` at full size (32,768 walkers, nd = 1792) with
    launch counts;
 9. the K1 redesign experiments against their plain versions on the card: S8
@@ -182,7 +183,23 @@ Phases, each of which exits non-zero on failure:
    launches exact); the recovery matrix's first fixture (3850, 3025) built
    and fitted through the two-stage pipeline with ``nburn`` cut from 1,000 to
    200 and ``nsteps`` from 10,000 to 2,000 (finite samples, K3's launches
-   exact, K1's counted).
+   exact, K1's counted);
+16. the attribution tools' kernels and instruments (``mcmc_spec_tpu_torch/scripts``):
+   S13 ``posterior_ablate`` (K1 v2 with its four sections gated at compile time:
+   the 16 masks of the 2^4 matrix and ``empty``, the launch floor) and S15
+   ``posterior_pair`` (K1 v2, two walkers a warp) on 1,024 + 5 bench walkers, an
+   odd count, S14 ``fleet_sections`` (K4 v2's modes; ``no_matmul`` on weights
+   whose grid point 0 holds each walker's largest, so that its stub rows are
+   finite) on phase 6's ragged fleet at 1,024 + 5 walkers a target and
+   ``scalar_rank`` on the bench target x 3, at both
+   dial sets in the kernel gate of their plain versions, with S13 ``1111`` and S15
+   bit for bit K1 and S14 ``full`` and ``scalar_rank`` bit for bit K4; then the
+   tools' timed run, with its launch counts: every S13 variant, S15 and K1 at
+   32,768 walkers, S14's modes on a half-step of the fleet cell,
+   ``utils.profiling.device_loop_time`` on K1 at 8,192 walkers (50 calls in one
+   CUDA graph, within 25 % of K1 alone under ``torch.profiler``, and the
+   composition's capture refused at its host read), and ``scripts.op_table`` over
+   4 stretch steps of 8,192 walkers (exactly 8 K1 launches).
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its bytes (each input read once, the
@@ -208,7 +225,7 @@ bound holds them against 67 TFLOP/s, twice the rate of one multiply per FP32
 lane per clock (S10 measures the latter).
 
 The phases' wall times are printed with the summary.  The line before the last
-is the kernel report (JSON, twenty-three kernels; K7d's three carry ``ms_alone``,
+is the kernel report (JSON, twenty-six kernels; K7d's three carry ``ms_alone``,
 ``ms_4way``, ``ms_alone_4way`` and ``bound_ms_4way`` beside their 2-way times); the
 last line is
 ``{"ok": true, "device": {...}}``.
@@ -1452,11 +1469,10 @@ def largend_phase(dev):
 
 
 def experiments_checks(dev, tgt, truth):
-    """S10, S11, S4 and S12 against their plain versions (and S11 against
-    ``torch.kthvalue``, S4 against K3, S12's ``full`` against K1) on the card.
-    Returns the max abs errors and the report's times and bounds."""
+    """S10, S11, S4 and the section variants (on S13) against their plain versions (and
+    S11 against ``torch.kthvalue``, S4 against K3, the ``full`` variant against K1) on the
+    card.  Returns the max abs errors and the report's times and bounds."""
     from mcmc_spec_tpu_torch.bench_target import init_walker_batch
-    from mcmc_spec_tpu_torch.inference.batched import _forward_small
     from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
     from mcmc_spec_tpu_torch.scripts import ablate_fused_sections as ab
     from mcmc_spec_tpu_torch.scripts import try_fast_recip as fr
@@ -1541,43 +1557,30 @@ def experiments_checks(dev, tgt, truth):
     bounds["spectrum_recip"] = bound(nbytes(*args) + 4 * Wc.shape[0],
                                      spectrum_ops(Wc, av, D.shape[1], fr.ITERS))
 
-    # S12: every variant on 16,384 + 5 walkers at both dial sets; full = K1 bit for bit
+    # the section variants of ablate_fused_sections, each an S13 mask: every variant on
+    # 16,384 + 5 walkers at both dial sets; full = K1 bit for bit
     nhalf = NWALK_BENCH // 2
     P = torch.cat([init_walker_batch(tgt, truth, nhalf, seed=4), edge_walkers(truth, tgt)])
-    errs["posterior_sections"] = 0.0
+    errs["posterior_ablate"] = 0.0
     for label, dials, allowed in (("exact dials (31, 6, 0)", EXACT, 0),
                                   ("production dials (14, 3, 2)", PROD,
                                    int(PROD_MAX_OUTSIDE_FRAC * nhalf))):
         t = dataclasses.replace(tgt, **dials)
+        k1 = ck.log_posterior_fused(P, t)
         for variant in ab.VARIANTS:
             got = ab.posterior_sections(P, t, variant)
             torch.cuda.synchronize()
             outside, rel, err = compare(got, ab.posterior_sections_reference(P, t, variant))
             if dials is EXACT:
-                errs["posterior_sections"] = max(errs["posterior_sections"], err)
-            line = (f"[S12 {variant} {label}] {P.shape[0]} walkers: {outside} outside tolerance "
-                    f"(allowed {allowed}), max rel err {rel:.3e}, max abs err {err:.3e}")
-            if variant == "full":
-                # S12 keeps the block-per-walker body, K1 runs one warp per walker: they
-                # agree to rounding
-                k1 = ck.log_posterior_fused(P, t)
-                out_k, rel_k, _ = compare(got, k1)
-                same = same_bits(got[:, None], k1[:, None])
-                line += (f"; {out_k} outside tolerance of K1, max rel diff {rel_k:.3e} ({same} "
-                         "bit-identical)")
-                require(out_k == 0, f"S12 full {label}: {out_k} walkers outside tolerance of K1")
-            print(line)
-            require(outside <= allowed, f"S12 {variant} {label}: {outside} outside tolerance")
-    prod = dataclasses.replace(tgt, **PROD)
-    coords = init_walker_batch(prod, truth, NWALK_BENCH)
-    times["posterior_sections"] = (
-        cuda_ms(lambda: ab.posterior_sections(coords, prod, "full")),
-        cuda_ms(lambda: ab.posterior_sections_reference(coords, prod, "full"), reps=5))
-    Wcomb = _forward_small(coords, prod)[4]
-    bounds["posterior_sections"] = bound(
-        nbytes(coords, *ck.kernel_tables(prod).values()) + 4 * NWALK_BENCH,
-        spectrum_ops(Wcomb, coords[:, prod.nspec], nd, PROD["median_iters"])
-        + posterior_scalar_ops(NWALK_BENCH, prod))
+                errs["posterior_ablate"] = max(errs["posterior_ablate"], err)
+            same = int(((got.view(torch.int32) == k1.view(torch.int32))
+                        | (torch.isnan(got) & torch.isnan(k1))).sum())
+            print(f"[sections {variant} (S13 {ab._mask(variant)}) {label}] {P.shape[0]} walkers: "
+                  f"{outside} outside tolerance (allowed {allowed}), max rel err {rel:.3e}, max "
+                  f"abs err {err:.3e}; {same} bit for bit K1")
+            require(outside <= allowed, f"sections {variant} {label}: {outside} outside tolerance")
+            require(variant != "full" or same == P.shape[0],
+                    f"sections full {label}: {P.shape[0] - same} walkers differ from K1")
     for name, (ms, plain_ms) in times.items():
         print(f"[time {name}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bounds[name][0]:.5f} ms ({bounds[name][1]})"
@@ -1608,7 +1611,7 @@ def experiments_phase(dev, tgt, truth):
     launches = dict(ck.LAUNCHES)
     print(f"[experiments] the three experiments in {time.perf_counter() - t0:.1f} s; launches "
           f"{launches}")
-    for name in ("fma_chains", "median_only", "spectrum_recip", "posterior_sections"):
+    for name in ("fma_chains", "median_only", "spectrum_recip", "posterior_ablate"):
         require(launches[name] > 0, f"{name} was not launched by the experiments")
     return {**res, "launches": launches, "mains": mains}
 
@@ -3553,6 +3556,231 @@ def accuracy_phase(dev, smi, fit):
     return total
 
 
+# phase 16: the attribution tools' kernels and instruments (mcmc_spec_tpu_torch/scripts)
+ATTR_NW = 1024  # S13-S15's gate: 1,024 + 5 edge walkers, an odd count
+ATTR_LOOP_NW = 8192  # device_loop_time on K1, profile_breakdown's batch
+ATTR_LOOP_REP = 50
+ATTR_LOOP_TOL = 0.25  # the perturbation and the sum add a few small launches a call
+ATTR_STEPS = 4  # op_table over stretch steps: two K1 launches a step
+ATTR_ALONE_CALLS = 20  # K1 alone under the profiler, beside device_loop_time
+ATTR_TRACE_TRIES = 3  # profiler traces taken while one holds no device op at all
+ATTR_KERNELS = (("posterior_ablate", "posterior_ablate.cu", "ablate_fused_sections.py:42"),
+                ("fleet_sections", "fleet_sections.cu", "trace_fleet_step.py:126"),
+                ("posterior_pair", "posterior_pair.cu", "try_two_blocks.py:36"))
+
+
+def traced(fn, n):
+    """``op_table.trace_calls(fn, n)``, traced again (``ATTR_TRACE_TRIES`` in all) while the
+    profiler returns a trace without any device op: a profiler that reported nothing,
+    not a count to check (the counts of a trace that holds device ops are checked as
+    they are)."""
+    from mcmc_spec_tpu_torch.scripts import op_table
+
+    for _ in range(ATTR_TRACE_TRIES):
+        tab = op_table.trace_calls(fn, n=n)
+        if tab["kernels"]:
+            break
+    return tab
+
+
+def attribution_checks(dev, tgt, truth):
+    """S13 (every mask and the launch floor) and S15 (an odd walker count) on 1,024 + 5
+    bench walkers, S14 (every mode) on the ragged fleet of phase 6 and ``scalar_rank`` on
+    the bench target x 3, each at both dial sets against its plain version in the kernel
+    gate; S13 ``1111`` and S15 bit for bit K1, S14 ``full`` and ``scalar_rank`` bit for bit
+    K4.  Returns the max abs errors at the exact dials."""
+    from mcmc_spec_tpu_torch.bench_target import init_walker_batch
+    from mcmc_spec_tpu_torch.inference.fleet import stack_targets
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.scripts.trace_fleet_step import finite_stub
+
+    errs = {name: 0.0 for name, _, _ in ATTR_KERNELS}
+    P = torch.cat([init_walker_batch(tgt, truth, ATTR_NW, seed=11), edge_walkers(truth, tgt)])
+    fleet, singles, _ = build_fleet(dev)
+    PF = torch.stack([torch.cat([init_walker_batch(s, truth, ATTR_NW, seed=12 + i),
+                                 edge_walkers(truth, s)]) for i, s in enumerate(singles)])
+    frozen = stack_targets([tgt] * 3)
+    PZ = torch.stack([torch.cat([init_walker_batch(tgt, truth, ATTR_NW, seed=30 + i),
+                                 edge_walkers(truth, tgt)]) for i in range(3)])
+    for label, dials in (("exact dials (31, 6, 0)", EXACT), ("production dials (14, 3, 2)", PROD)):
+        exact = dials is EXACT
+        allowed = 0 if exact else int(PROD_MAX_OUTSIDE_FRAC * P.shape[0])
+        t = dataclasses.replace(tgt, **dials)
+        k1 = ck.log_posterior_fused(P, t)
+        lines = []
+        for v in ck.ABLATE_VARIANTS:
+            got = ck.posterior_ablate(P, t, v)
+            torch.cuda.synchronize()
+            outside, rel, err = compare(got, ck.posterior_ablate_reference(P, t, v))
+            same = same_bits(got, k1)[0]
+            lines.append(f"{v} {outside} out, rel {rel:.2e}, {same} = K1")
+            require(outside <= allowed, f"S13 {v} {label}: {outside} walkers outside tolerance")
+            require(v != "1111" or same == P.shape[0],
+                    f"S13 1111 {label}: {P.shape[0] - same} walkers differ from K1")
+            if exact:
+                errs["posterior_ablate"] = max(errs["posterior_ablate"], err)
+        print(f"[S13 posterior_ablate {label}] {P.shape[0]} walkers (allowed {allowed}), mask "
+              "PRSW: " + "; ".join(lines))
+        got = ck.posterior_pair(P, t)
+        torch.cuda.synchronize()
+        outside, rel, err = compare(got, ck.log_posterior_fused_reference(P, t))
+        same = same_bits(got, k1)[0]
+        print(f"[S15 posterior_pair {label}] {P.shape[0]} walkers: {outside} outside tolerance, "
+              f"max rel err {rel:.3e}; {same} bit for bit K1")
+        require(outside <= allowed and same == P.shape[0],
+                f"S15 {label}: {outside} outside tolerance, {P.shape[0] - same} differ from K1")
+        if exact:
+            errs["posterior_pair"] = err
+        for name, fl, PP, modes in (
+                ("the ragged fleet", fleet, PF, ck.FLEET_SECTION_MODES[:-1]),
+                ("the bench target x 3", frozen, PZ, ("full", "scalar_rank"))):
+            fl = dataclasses.replace(fl, **dials)
+            W, av = fleet_wcomb(PP, fl).contiguous(), PP[..., fl.nspec].contiguous()
+            k4 = ck.spectrum_chi2_fleet(W, av, fl)
+            # no_matmul's stub row is grid point 0's weight: put each walker's largest there
+            Ws = {m: finite_stub(W) if m == "no_matmul" else W for m in modes}
+            n = PP.shape[0] * PP.shape[1]
+            allowed_f = 0 if exact else int(PROD_MAX_OUTSIDE_FRAC * n)
+            lines = []
+            for m in modes:
+                got = ck.fleet_sections(Ws[m], av, fl, m)
+                torch.cuda.synchronize()
+                outside, rel, err = compare(got.flatten(),
+                                            ck.fleet_sections_reference(Ws[m], av, fl, m).flatten())
+                same = same_bits(got.flatten(), k4.flatten())[0]
+                lines.append(f"{m} {outside} out, rel {rel:.2e}, {same} = K4")
+                require(outside <= allowed_f,
+                        f"S14 {m} on {name} {label}: {outside} walkers outside tolerance")
+                require(m not in ("full", "scalar_rank") or same == n,
+                        f"S14 {m} on {name} {label}: {n - same} walkers differ from K4")
+                if exact:
+                    errs["fleet_sections"] = max(errs["fleet_sections"], err)
+            print(f"[S14 fleet_sections {label}] {name}, {n} walkers (allowed {allowed_f}): "
+                  + "; ".join(lines))
+    return errs
+
+
+def attribution_phase(dev, smi, tgt, truth):
+    """Phase 16: the kernel checks, then the tools' timed run, with its launch counts: S13's
+    masks, S15 and K1 at the bench shape (32,768 walkers, production dials), S14's modes
+    on a half-step of the fleet cell, ``device_loop_time`` on K1 (within 25 % of K1 alone,
+    and a capture refused at the composition's host read), ``op_table`` over stretch
+    steps (exactly two K1 launches a step)."""
+    from mcmc_spec_tpu_torch.bench_target import init_walker_batch
+    from mcmc_spec_tpu_torch.inference import batched
+    from mcmc_spec_tpu_torch.inference.fleet import stack_targets
+    from mcmc_spec_tpu_torch.inference.stretch import init_ensemble, run_ensemble
+    from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
+    from mcmc_spec_tpu_torch.scripts import op_table
+    from mcmc_spec_tpu_torch.scripts.trace_fleet_step import finite_stub
+    from mcmc_spec_tpu_torch.utils.profiling import CaptureError, device_loop_time
+
+    walls = {}
+    t0 = time.perf_counter()
+    errs = attribution_checks(dev, tgt, truth)
+    walls["checks"] = time.perf_counter() - t0
+
+    prod = dataclasses.replace(tgt, **PROD)
+    coords = init_walker_batch(prod, truth, NWALK_BENCH)
+    fleet, singles, _ = build_fleet(dev)
+    fleet = dataclasses.replace(fleet, **PROD)
+    half = torch.stack([init_walker_batch(s, truth, NW_FLEET // 2, seed=1 + i)
+                        for i, s in enumerate(singles)])
+    Wh, avh = fleet_wcomb(half, fleet).contiguous(), half[..., fleet.nspec].contiguous()
+    frozen = dataclasses.replace(stack_targets([tgt] * NTGT), **PROD)
+    halfz = torch.stack([init_walker_batch(tgt, truth, NW_FLEET // 2, seed=40 + i)
+                         for i in range(NTGT)])
+    Wz, avz = fleet_wcomb(halfz, frozen).contiguous(), halfz[..., frozen.nspec].contiguous()
+    P8 = coords[:ATTR_LOOP_NW].contiguous()
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    s13 = {v: cuda_ms(lambda v=v: ck.posterior_ablate(coords, prod, v)) for v in ck.ABLATE_VARIANTS}
+    k1_ms = cuda_ms(lambda: ck.log_posterior_fused(coords, prod))
+    s15 = cuda_ms(lambda: ck.posterior_pair(coords, prod))
+    Whs = {m: finite_stub(Wh) if m == "no_matmul" else Wh for m in ck.FLEET_SECTION_MODES[:-1]}
+    s14 = {m: cuda_ms(lambda m=m: ck.fleet_sections(Whs[m], avh, fleet, m))
+           for m in ck.FLEET_SECTION_MODES[:-1]}
+    s14z = {m: cuda_ms(lambda m=m: ck.fleet_sections(Wz, avz, frozen, m))
+            for m in ("full", "scalar_rank")}
+    loop_ms = 1e3 * device_loop_time(lambda q: ck.log_posterior_fused(q, prod), P8,
+                                     rep=ATTR_LOOP_REP)
+    alone_tab = traced(lambda: ck.log_posterior_fused(P8, prod), ATTR_ALONE_CALLS)
+    n_alone = op_table.launches(alone_tab, "log_posterior_fused_kernel")
+    alone = (op_table.device_ms(alone_tab, "log_posterior_fused_kernel") / n_alone
+             if n_alone else None)
+    refused = None
+    comp = dataclasses.replace(prod, spectrum_backend="xla")
+    try:
+        device_loop_time(lambda q: batched.log_posterior_batch(q, comp), P8, rep=2)
+    except CaptureError as e:
+        refused = str(e)
+    logp = lambda q: batched.log_posterior_batch(q, prod)
+    state = [init_ensemble(P8, logp, torch.Generator(device=dev).manual_seed(0))]
+
+    def steps():
+        state[0] = run_ensemble(state[0], logp, n_steps=ATTR_STEPS, thin=ATTR_STEPS)[0]
+
+    tab = traced(steps, 1)
+    torch.cuda.synchronize()
+    launches = {name: ck.LAUNCHES[name] for name, _, _ in ATTR_KERNELS}
+    walls["timed run"] = time.perf_counter() - t0
+    k1_steps = op_table.launches(tab, "log_posterior_fused_kernel")
+
+    print(f"[S13 posterior_ablate] {smi}: {NWALK_BENCH} walkers, production dials, ms by mask "
+          "PRSW: " + ", ".join(f"{v} {ms:.4f}" for v, ms in s13.items())
+          + f"; K1 {k1_ms:.4f} ms")
+    print(f"[S15 posterior_pair] {NWALK_BENCH} walkers: {s15:.4f} ms (K1 {k1_ms:.4f} ms)")
+    print(f"[S14 fleet_sections] one half-step of the fleet cell, {NTGT} x {NW_FLEET // 2} "
+          "walkers, production dials, ms: " + ", ".join(f"{m} {ms:.4f}" for m, ms in s14.items())
+          + f"; on the bench target x {NTGT}: full {s14z['full']:.4f}, scalar_rank "
+          f"{s14z['scalar_rank']:.4f}")
+    print(f"[device_loop_time] K1 on {ATTR_LOOP_NW} walkers, {ATTR_LOOP_REP} calls in one CUDA "
+          f"graph: {loop_ms:.4f} ms a call; K1 alone under torch.profiler {fmt_ms(alone)}")
+    print(f"[device_loop_time] the composition's capture: "
+          f"{'refused: ' + refused if refused else 'captured (expected a refusal)'}")
+    op_table.print_table(tab, f"op_table, {ATTR_STEPS} stretch steps of {ATTR_LOOP_NW} walkers",
+                         top=6, per=ATTR_STEPS)
+    print(f"[attribution] {smi}: launches {launches}; op_table counts {k1_steps} K1 launches "
+          f"(expected {2 * ATTR_STEPS}); wall times (s) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    require(alone is not None and abs(loop_ms / alone - 1.0) <= ATTR_LOOP_TOL,
+            f"device_loop_time {loop_ms:.4f} ms not within {ATTR_LOOP_TOL:.0%} of K1 alone "
+            f"{fmt_ms(alone)}")
+    require(refused is not None and "batched.py" in refused,
+            f"device_loop_time did not refuse the composition's host read: {refused}")
+    require(k1_steps == 2 * ATTR_STEPS,
+            f"op_table counted {k1_steps} K1 launches over {ATTR_STEPS} steps")
+    for name, _, _ in ATTR_KERNELS:
+        require(launches[name] > 0, f"{name} was not launched in the tools' timed run")
+
+    # the report's numbers: S13 and S15 at the bench shape (K1's bound), S14 on the half-step
+    nd = prod.D.shape[2]
+    Wcomb = batched._forward_small(coords, prod)[4]
+    k1_bound = bound(nbytes(coords, *ck.kernel_tables(prod).values()) + 4 * NWALK_BENCH,
+                     spectrum_ops(Wcomb, coords[:, prod.nspec], nd, PROD["median_iters"])
+                     + posterior_scalar_ops(NWALK_BENCH, prod))
+    tabs = ck.fleet_kernel_tables(fleet)
+    k4_bound = bound(nbytes(Wh, avh, *(tabs[k] for k in ("D", "kd", "data", "inv_err", "VpinvT",
+                                                         "VT", "scal", "ranks")))
+                     + 4 * Wh.shape[0] * Wh.shape[1],
+                     spectrum_ops(Wh, avh, nd, PROD["median_iters"]))
+    times = {
+        "posterior_ablate": (s13["1111"], cuda_ms(
+            lambda: ck.posterior_ablate_reference(coords, prod, "1111"), reps=3)),
+        "fleet_sections": (s14["full"], cuda_ms(
+            lambda: ck.fleet_sections_reference(Wh, avh, fleet, "full"), reps=3)),
+        "posterior_pair": (s15, cuda_ms(lambda: ck.log_posterior_fused_reference(coords, prod),
+                                        reps=3)),
+    }
+    bounds = {"posterior_ablate": k1_bound, "fleet_sections": k4_bound, "posterior_pair": k1_bound}
+    for name, (ms, plain_ms) in times.items():
+        print(f"[time {name}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bounds[name][0]:.5f} ms ({bounds[name][1]})")
+    return {"errs": errs, "times": times, "bounds": bounds, "launches": launches,
+            "s13": s13, "s14": s14, "loop_ms": loop_ms, "alone_ms": alone}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s = {}
@@ -3583,6 +3811,7 @@ def main() -> int:
         acc = timed("accuracy", accuracy_phase, dev, smi, pipe["fit"])
     finally:
         shutil.rmtree(fit_root, ignore_errors=True)
+    attr = timed("attribution", attribution_phase, dev, smi, tgt, truth)
     probes_s = phase_s["probes"]
     print(f"[probes] phase 10 in {probes_s:.1f} s (budget {PROBES_BUDGET_S} s"
           + (")" if probes_s <= PROBES_BUDGET_S else ", OVER BUDGET)"))
@@ -3636,9 +3865,7 @@ def main() -> int:
     # the cost-attribution experiments, scripts/
     for name, src, where in (("fma_chains", "microbench.cu", "vpu_microbench.py:74"),
                              ("median_only", "microbench.cu", "vpu_microbench.py:97"),
-                             ("spectrum_recip", "spectrum_recip.cu", "try_fast_recip.py:105"),
-                             ("posterior_sections", "posterior_sections.cu",
-                              "ablate_fused_sections.py:42")):
+                             ("spectrum_recip", "spectrum_recip.cu", "try_fast_recip.py:105")):
         rows.append((name, src, f"scripts/{where}", eres["launches"][name], eres["errs"][name],
                      *eres["times"][name], eres["bounds"][name], eres["library"].get(name)))
     # the K1 redesign experiments, scripts/
@@ -3660,6 +3887,10 @@ def main() -> int:
         ms, _, plain_ms = pres["times"][name]
         rows.append((name, src, f"scripts/{where}", pres["launches"][name], pres["errs"][name],
                      ms, plain_ms, pres["bounds"][name], pres["library"].get(name)))
+    # the attribution tools' kernels, scripts/ (phase 16)
+    for name, src, where in ATTR_KERNELS:
+        rows.append((name, src, f"scripts/{where}", attr["launches"][name], attr["errs"][name],
+                     *attr["times"][name], attr["bounds"][name], None))
     # `launches` counts where a wrapper launches; the probes' mains also replay CUDA graphs
     # of those launches, which no wrapper sees: `graph_replays` counts them
     replays = {name: pres["mains"][script]["replayed"]
@@ -3719,6 +3950,10 @@ def main() -> int:
         # phase 15: the shape sweep, the tempering bound and the recovery fixture
         if r["name"] in acc:
             r["launches_accuracy"] = acc[r["name"]]
+        # phase 10: the section variants of ablate_fused_sections, checked and run on S13
+        if r["name"] == "posterior_ablate":
+            r["launches_experiments"] = eres["launches"][r["name"]]
+            r["max_abs_err_experiments"] = eres["errs"][r["name"]]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

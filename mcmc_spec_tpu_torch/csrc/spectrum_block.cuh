@@ -1,5 +1,5 @@
 // Device helpers and the one-block-per-walker spectrum-statistics body (K2)
-// of the experiments S4, S5, S6, S8, S11 and S12; it was also the body of the
+// of the experiments S4, S5, S6, S8 and S11; it was also the body of the
 // fused posterior K1, the spectrum-chi^2 kernel K3, the fleet spectrum-chi^2
 // kernel K4 and the fused fleet posterior K5, which now run one warp per
 // walker (spectrum_warp.cuh, sharing SpecStat and the constants below).

@@ -7,7 +7,7 @@
 // Replaces mcmc_spec_tpu/ops/pallas_kernels.py:_spectrum_block (with
 // _row_order_stat_bits/_row_median_nonneg and _div) for K1, K3, K4 and K5;
 // the one-block-per-walker body of spectrum_block.cuh stays in the
-// experiments S4, S5, S6, S8 and S12, which keep their code.
+// experiments S4, S5, S6 and S8, which keep their code.
 //
 // What bounded the block-per-walker body on an H100 (PERF.md): every pass
 // ended in a block barrier (14 or 31 median passes of two __syncthreads
@@ -35,6 +35,14 @@
 // What bounds it now: the row build's D reads from L2 (8 rows of nd floats
 // per walker at the production weights) and the tail's table reads; the
 // median passes sweep shared memory at 16 bytes a lane.
+//
+// The gates kMatmul, kExtinct and kMedian (template arguments of
+// spectrum_warp, build_row_warp and spectrum_tail_warp) switch a section off
+// at compile time for the fleet ablation S14 (fleet_sections.cu), each
+// replaced by the stub of scripts/trace_fleet_step.py:variant_kernel: the row
+// the walker's first weight at every point, no extinction, no median match.
+// Their defaults, every section on, are the production body of K1, K3, K4 and
+// K5.
 #pragma once
 
 #include "spectrum_block.cuh"
@@ -78,12 +86,13 @@ __device__ __forceinline__ int compact_weights(const float* wc, int NO, int* lo,
 // Step 2: row[j] = (sum over the list of w D[o, j]) * 10^(-0.4 av kd[j]).  The
 // list is taken kBuildChunk entries at a time; a longer list (a dense blend)
 // carries each point's partial sum in the row between chunks, which keeps the
-// fmaf chain and its rounding.
+// fmaf chain and its rounding.  kExtinct false: no extinction.
+template <bool kExtinct = true>
 __device__ __forceinline__ void build_row_warp(const int* lo, const float* lw, int L, float av,
                                                const float* __restrict__ D, int nd,
                                                const float* __restrict__ kd, float* row) {
   const int lane = threadIdx.x & 31;
-  const bool extinct = av > 0.0f;
+  const bool extinct = kExtinct && av > 0.0f;
   const float ak = kLn10x04 * av;
   const int nchunk = L > 0 ? (L + kBuildChunk - 1) / kBuildChunk : 1;
   for (int c = 0; c < nchunk; ++c) {
@@ -162,7 +171,8 @@ __device__ __forceinline__ float row_median_warp(const float* row, int nd, int r
 }
 
 // Step 4 on a built row: the median match, the continuum renorm and the chi^2.
-// Every lane returns the chi^2.
+// Every lane returns the chi^2.  kMedian false: the row is not median-matched.
+template <bool kMedian = true>
 __device__ __forceinline__ float spectrum_tail_warp(const float* row, int nd,
                                                     const float* __restrict__ data,
                                                     const float* __restrict__ inv_err,
@@ -171,7 +181,8 @@ __device__ __forceinline__ float spectrum_tail_warp(const float* row, int nd,
                                                     float med_data, int iters, bool renorm,
                                                     int recip, const SpecStat st) {
   const int lane = threadIdx.x & 31;
-  const float alpha = med_data / row_median_warp(row, nd, st.r1, st.r2, iters);
+  const float alpha =
+      kMedian ? med_data / row_median_warp(row, nd, st.r1, st.r2, iters) : 1.0f;
 
   float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
   if (renorm) {
@@ -202,9 +213,21 @@ __device__ __forceinline__ float spectrum_tail_warp(const float* row, int nd,
   return st.mean ? tot / (float)nd : tot * st.inv_n;
 }
 
+// The row of the S14 stub without the product: w0, the walker's first blend
+// weight, at every point, then the extinction unless kExtinct is false.
+template <bool kExtinct>
+__device__ __forceinline__ void broadcast_row_warp(float w0, float av, int nd,
+                                                   const float* __restrict__ kd, float* row) {
+  const bool extinct = kExtinct && av > 0.0f;
+  const float ak = kLn10x04 * av;
+  for (int j = threadIdx.x & 31; j < nd; j += 32) row[j] = extinct ? w0 * expf(ak * kd[j]) : w0;
+  __syncwarp();
+}
+
 // K2 v2 for the calling warp's walker: wc its NO blend weights, row / lo / lw
 // its slice of dynamic shared memory (round4(nd) floats, NO ints, NO floats).
 // Every lane returns the chi^2.
+template <bool kMatmul = true, bool kExtinct = true, bool kMedian = true>
 __device__ inline float spectrum_warp(const float* wc, float av, const float* __restrict__ D,
                                       int NO, int nd, const float* __restrict__ kd,
                                       const float* __restrict__ data,
@@ -213,10 +236,14 @@ __device__ inline float spectrum_warp(const float* wc, float av, const float* __
                                       const float* __restrict__ VT, float med_data, int iters,
                                       bool renorm, int recip, const SpecStat st, float* row,
                                       int* lo, float* lw) {
-  const int L = compact_weights(wc, NO, lo, lw);
-  build_row_warp(lo, lw, L, av, D, nd, kd, row);
-  return spectrum_tail_warp(row, nd, data, inv_err, VpinvT, VT, med_data, iters, renorm, recip,
-                            st);
+  if constexpr (kMatmul) {
+    const int L = compact_weights(wc, NO, lo, lw);
+    build_row_warp<kExtinct>(lo, lw, L, av, D, nd, kd, row);
+  } else {
+    broadcast_row_warp<kExtinct>(wc[0], av, nd, kd, row);
+  }
+  return spectrum_tail_warp<kMedian>(row, nd, data, inv_err, VpinvT, VT, med_data, iters, renorm,
+                                     recip, st);
 }
 
 }  // namespace mcmc_spec

@@ -26,7 +26,7 @@ experiment kernels of ``mcmc_spec_tpu_torch.scripts``.  K1 and K3 take the
 median of the whole row and the mean chi^2; K4 and K5 take per-target median
 ranks and ``sum * 1/n_true``, so padded points are inert.  K1 and K5 share
 the warp-per-walker posterior body (``csrc/posterior_warp.cuh``), the
-experiments S8 and S12 the block-per-walker one (``csrc/posterior_body.cuh``).
+experiment S8 the block-per-walker W path (``csrc/posterior_body.cuh``).
 ``walkers_per_block`` chooses how many walkers a block of K1, K3, K4 or K5
 holds.
 
@@ -36,12 +36,15 @@ operand tables.  A wrapper runs the plain version only when it is given CPU
 tensors; given CUDA tensors it launches the kernel or raises.  ``LAUNCHES``
 counts each wrapper's kernel launches.  The segmented large-nd lane
 (``ops.spec_segmented``, K6-K9) shares this library, its checks and its
-counts.
+counts, and so do the attribution tools' variants of K1 and K4 at the end of
+this module: S13 ``posterior_ablate`` (K1's sections gated at compile time),
+S14 ``fleet_sections`` (K4's) and S15 ``posterior_pair`` (two walkers a warp).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import math
 
 import torch
@@ -66,13 +69,15 @@ LAUNCHES = {"log_posterior_fused": 0, "spectrum_chi2": 0, "spectrum_chi2_fleet":
             # K7d, the spectral-sharded lane's median (ops.spec_segmented)
             "median_round": 0, "median_refine": 0, "median_finish": 0,
             # the cost-attribution experiments (mcmc_spec_tpu_torch.scripts)
-            "fma_chains": 0, "median_only": 0, "spectrum_recip": 0, "posterior_sections": 0,
+            "fma_chains": 0, "median_only": 0, "spectrum_recip": 0,
             # the K1 redesign experiments (mcmc_spec_tpu_torch.scripts)
             "posterior_transposed": 0, "median_adaptive": 0, "median_packed": 0,
             "spectrum_overlap": 0,
             # the fleet grid order and the launch-cost probes (mcmc_spec_tpu_torch.scripts)
             "spectrum_chi2_fleet_2d": 0, "trivial_probe": 0, "bisect_probe": 0,
-            "bisect2_probe": 0}
+            "bisect2_probe": 0,
+            # the attribution tools' kernels (mcmc_spec_tpu_torch.scripts)
+            "posterior_ablate": 0, "fleet_sections": 0, "posterior_pair": 0}
 # the dynamic shared memory a Hopper block may opt into (227 KB), less a margin
 # for the kernels' static shared memory: the kernels hold their walkers' model
 # rows of nd floats and blend weights in it
@@ -120,6 +125,22 @@ def walkers_per_block(nd: int, NO: int, weight_rows: int) -> int:
             f"a walker's row of nd={nd} points and {weight_rows + 2} rows of {NO} weights "
             f"takes {per} bytes of shared memory, more than the {ROW_SMEM_BYTES} a block has")
     return wpb
+
+
+def _block_walkers(nd: int, NO: int, weight_rows: int, requested=None) -> int:
+    """The walkers a block of K1, K3, K4 or K5 holds: ``walkers_per_block`` where
+    ``requested`` is None, else ``requested``, which must lie in 1 .. ``WALKERS_MAX``
+    and fit ``ROW_SMEM_BYTES`` (``ValueError`` otherwise)."""
+    if requested is None:
+        return walkers_per_block(nd, NO, weight_rows)
+    per = warp_smem_bytes(nd, NO, weight_rows)
+    if int(requested) != requested or not 1 <= requested <= WALKERS_MAX \
+            or requested * per > ROW_SMEM_BYTES:
+        raise ValueError(
+            f"{requested} walkers a block: a block holds 1 to {WALKERS_MAX} walkers of "
+            f"{per} bytes each (nd={nd}, {weight_rows + 2} rows of {NO} weights) in "
+            f"{ROW_SMEM_BYTES} bytes of shared memory")
+    return int(requested)
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +315,8 @@ def _one_cpu_thread(fn):
 
 @_one_cpu_thread
 def _spectrum_block(Wcomb, av, D, kd, data, inv_err, VpinvT, VT, med_data, iters,
-                    renorm=True, recip=0, fleet_stat=None, noexp=False):
+                    renorm=True, recip=0, fleet_stat=None, noexp=False, matmul=True,
+                    extinct=True, median=True):
     """K2: model, extinction, median match, continuum renorm, chi^2 ([B, 1]).
 
     ``av`` is [B, 1]; the data-axis operands are [nd] or [3, nd].  The model
@@ -303,18 +325,26 @@ def _spectrum_block(Wcomb, av, D, kd, data, inv_err, VpinvT, VT, med_data, iters
     K3); with ``fleet_stat = (r1, r2, inv_n)`` the median takes those ranks
     and the chi^2 is ``sum * inv_n`` (K4, K5).  ``noexp`` (the experiment S4
     only) swaps the extinction exp for the linear term ``1 + LN10_04*av*kd``.
+    ``matmul``, ``extinct`` and ``median`` False (the fleet ablation S14 only) stub
+    their sections as ``scripts/trace_fleet_step.py`` does: the row is the first blend
+    weight at every point, no extinction, no median match.
     On the CPU it runs on one thread (``_one_cpu_thread``).
     """
-    model = Wcomb @ D
-    ext = LN10_04 * av * kd[None, :]
-    trans = torch.where(av > 0, 1.0 + ext if noexp else torch.exp(ext),
-                        torch.ones((), dtype=_F32, device=model.device))
-    model = model * trans
-    if fleet_stat is None:
-        med = _row_median_nonneg(model, iters=iters)
+    if matmul:
+        model = Wcomb @ D
     else:
-        med = _row_median_ranks(model, fleet_stat[0], fleet_stat[1], iters)
-    model = model * (med_data / med)
+        model = Wcomb[:, :1] + torch.zeros_like(kd)[None, :]
+    if extinct:
+        ext = LN10_04 * av * kd[None, :]
+        trans = torch.where(av > 0, 1.0 + ext if noexp else torch.exp(ext),
+                            torch.ones((), dtype=_F32, device=model.device))
+        model = model * trans
+    if median:
+        if fleet_stat is None:
+            med = _row_median_nonneg(model, iters=iters)
+        else:
+            med = _row_median_ranks(model, fleet_stat[0], fleet_stat[1], iters)
+        model = model * (med_data / med)
     if renorm:
         frac = _div(data[None, :], model, recip)
         c0 = (frac * VpinvT[0][None, :]).sum(dim=1, keepdim=True)
@@ -357,12 +387,16 @@ _SIGNATURES = {
     "fma_chains_launch": [_P] * 2 + [ctypes.c_longlong] + [_I] + [_P],
     "median_only_launch": [_P] * 2 + [_I] * 3 + [_P],
     "spectrum_recip_launch": [_P] * 10 + [_I] * 6 + [_P],
-    "posterior_sections_launch": [_P] * 20 + [_I] * 14 + [_F] * 2 + [_I] + [_P],
     # the K1 redesign experiments (mcmc_spec_tpu_torch.scripts)
     "posterior_transposed_launch": [_P] * 20 + [_I] * 14 + [_F] * 2 + [_P],
     "median_adaptive_launch": [_P] * 3 + [_I] * 2 + [_P],
     "median_packed_launch": [_P] * 2 + [_I] * 2 + [_P],
     "spectrum_overlap_launch": [_P] * 10 + [_I] * 6 + [_P],
+    # the attribution tools (mcmc_spec_tpu_torch.scripts): K1's arguments and a variant
+    # (S13), K1's (S15), K4's and a mode (S14)
+    "posterior_ablate_launch": [_P] * 20 + [_I] * 14 + [_F] * 3 + [_I] * 2 + [_P],
+    "posterior_pair_launch": [_P] * 20 + [_I] * 14 + [_F] * 3 + [_I] + [_P],
+    "fleet_sections_launch": [_P] * 11 + [_I] * 8 + [_P],
     # the fleet grid order and the launch-cost probes (mcmc_spec_tpu_torch.scripts); a
     # probe's tables go as a C array of pointers and one of sizes
     "fleet_grid_order_launch": [_P] * 11 + [_I] * 7 + [_P],
@@ -551,8 +585,8 @@ def _posterior_plain(p, cfg, t, tmin, tmax, med_data, spec_scale, iters, recip, 
     the filter count and ``fleet_stat`` is None; one target of K5: the
     per-target ``spec_scale`` and ``fleet_stat = (r1, r2, inv_n)``.
     ``sections`` = (phot, priors, spectrum, W) switches sections off for the
-    cost ablation S12 (``scripts.ablate_fused_sections``), each replaced by
-    the stub of ``posterior_body.cuh``; K1 and K5 keep them all on.
+    cost ablation S13 (``posterior_ablate``), each replaced by the stub of
+    ``posterior_warp.cuh``; K1 and K5 keep them all on.
     """
     do_phot, do_priors, do_spectrum, do_w = sections
     n = cfg.nspec
@@ -658,19 +692,23 @@ def _posterior_plain(p, cfg, t, tmin, tmax, med_data, spec_scale, iters, recip, 
     return torch.where(torch.isfinite(lp), lp + ll, neg_inf)[:, 0]
 
 
-def log_posterior_fused(p, tgt):
+def log_posterior_fused(p, tgt, walkers_per_block=None):
     """Fused ``log_posterior_batch`` of one unpadded target, K1: [B] float32.
 
     Requires ``tgt.n_contrast > 0`` and ``tgt.n_phot > 0`` and the target's
     tensors on ``p``'s device (the dispatch in ``inference.batched`` checks
-    eligibility).
+    eligibility).  ``walkers_per_block``: the walkers a block holds (the block-size
+    sweep of ``scripts.try_block_size``); None takes the module's
+    ``walkers_per_block``, and a count that does not fit raises ``ValueError``.
     """
     resolve_dials(tgt)
+    nT, nG, nd = tgt.D.shape
+    if walkers_per_block is not None:
+        _block_walkers(nd, nT * nG, 1 + tgt.nspec, walkers_per_block)
     if p.device.type == "cpu":
         return log_posterior_fused_reference(p, tgt)
     _require_cuda(p, "log_posterior_fused")
-    nT, nG, nd = tgt.D.shape
-    wpb = walkers_per_block(nd, nT * nG, 1 + tgt.nspec)
+    wpb = _block_walkers(nd, nT * nG, 1 + tgt.nspec, walkers_per_block)
     out, args = posterior_launch_args(p, tgt, "log_posterior_fused")
     if args:
         _launch("log_posterior_fused_launch", "log_posterior_fused", *args,
@@ -681,9 +719,9 @@ def log_posterior_fused(p, tgt):
 def posterior_launch_args(p, tgt, kernel: str):
     """(out, args) of a one-target posterior kernel over walkers ``p`` (CUDA) on
     ``tgt``'s tables: ``out`` the [B] result, ``args`` the launch arguments from
-    ``scal`` to the spectrum scale that K1 and the section ablation S12
-    (``scripts.ablate_fused_sections``) share, None when B is 0.  Each caller
-    appends its own last scalar and the stream."""
+    ``scal`` to the spectrum scale that K1, the section ablation S13 and the
+    two-walker warps S15 share,
+    None when B is 0.  Each caller appends its own last scalars and the stream."""
     iters, _, recip = resolve_dials(tgt)
     dev = p.device
     t = kernel_tables(tgt)
@@ -765,7 +803,7 @@ def spectrum_chi2_fleet_reference(Wcomb, av, fleet):
         for i in range(Wcomb.shape[0])])
 
 
-def spectrum_chi2_fleet(Wcomb, av, fleet):
+def spectrum_chi2_fleet(Wcomb, av, fleet, walkers_per_block=None):
     """Fleet spectrum chi^2 (sum over the true points / n_true), K4: [ntgt, nw] float32.
 
     Args:
@@ -773,25 +811,29 @@ def spectrum_chi2_fleet(Wcomb, av, fleet):
         av: [ntgt, nw] extinction values.
         fleet: the stacked fleet (``inference.fleet.stack_targets``); its
             pack-time dials select the median passes and the reciprocal.
+        walkers_per_block: the walkers a block holds (``scripts.try_fleet_block``);
+            None takes ``walkers_per_block``, a count that does not fit raises.
     """
     resolve_dials(fleet)
+    if walkers_per_block is not None:
+        _block_walkers(fleet.D.shape[-1], Wcomb.shape[-1], 0, walkers_per_block)
     if Wcomb.device.type == "cpu":
         return spectrum_chi2_fleet_reference(Wcomb, av, fleet)
     _require_cuda(Wcomb, "spectrum_chi2_fleet")
-    out, args = fleet_spectrum_launch_args(Wcomb, av, fleet)
+    out, args = fleet_spectrum_launch_args(Wcomb, av, fleet, walkers_per_block)
     if args:
         _launch("spectrum_chi2_fleet_launch", "spectrum_chi2_fleet", *args,
                 _stream(Wcomb.device))
     return out
 
 
-def fleet_spectrum_launch_args(Wcomb, av, fleet):
+def fleet_spectrum_launch_args(Wcomb, av, fleet, walkers_per_block=None):
     """(out, args) of K4 for the blend weights ``Wcomb`` [ntgt, nw, NO] and extinctions
     ``av`` [ntgt, nw] on the fleet's tables: ``out`` the [ntgt, nw] result, ``args`` the
     launch arguments up to the walkers per block (the stream follows), None when there
     are no walkers.  As K5, the kernel flattens the walkers to [ntgt * nw] and gives a
-    block ``walkers_per_block`` of them (K3's body: no weight rows), so a block may span
-    two targets."""
+    block ``walkers_per_block`` of them (K3's body: no weight rows, or the count asked
+    for), so a block may span two targets."""
     iters, _, recip = resolve_dials(fleet)
     dev = Wcomb.device
     t = fleet_kernel_tables(fleet)
@@ -805,7 +847,7 @@ def fleet_spectrum_launch_args(Wcomb, av, fleet):
                            (t["scal"], "scal", (ntgt, 5))):
         _check(x, name, dev, shape)
     _check(t["ranks"], "ranks", dev, (ntgt, 2), torch.int32)
-    wpb = walkers_per_block(nd, NO, 0)
+    wpb = _block_walkers(nd, NO, 0, walkers_per_block)
     out = torch.empty((ntgt, nw), dtype=_F32, device=dev)
     if ntgt * nw == 0:
         return out, None
@@ -889,3 +931,143 @@ def fleet_posterior_launch_args(params, fleet):
                  ntgt, nw, ndim, NO, nd, nm, nav, nc, npf, fleet.nspec, int(fleet.fit_plx),
                  int(fleet.dist_fit), int(fleet.rad_prior), iters, recip,
                  float(fleet.spectrum_weight), float(fleet.rad_sigma_frac), wpb)
+
+
+# ---------------------------------------------------------------------------
+# the attribution tools' kernels (mcmc_spec_tpu_torch.scripts): S13 the 2^4 section
+# matrix of K1, S14 K4's sections, S15 K1 with two walkers a warp
+
+
+# S13's variants: each mask of (phot, priors, spectrum, W) as "PRSW", in the order of
+# scripts/ablate_matrix.py (itertools.product((True, False), repeat=4)), "1111" being
+# K1 and "0000" the JAX script's `empty`; then "empty", the launch floor behind K1's
+# signature (copies each walker's first parameter)
+ABLATE_MASKS = tuple("".join("1" if b else "0" for b in bits)
+                     for bits in itertools.product((True, False), repeat=4))
+ABLATE_VARIANTS = ABLATE_MASKS + ("empty",)
+# S14's modes, in the order of scripts/trace_fleet_step.py, then K4 with its median
+# ranks compile-time constants (scripts/try_fleet_block.py)
+FLEET_SECTION_MODES = ("full", "no_matmul", "no_extinct", "no_median", "no_renorm", "empty",
+                       "scalar_rank")
+FROZEN_ND = 1792  # scalar_rank's n_true: kFrozenNd in csrc/fleet_sections.cu
+
+
+def section_scope(tgt, kernel: str) -> None:
+    """The branch of the posterior that the JAX section variants hard-code (a binary with
+    a fitted parallax, the distance bounds, no radius prior and a spectrum), or
+    ``ValueError`` naming ``kernel``."""
+    bad = [why for why, off in (("nspec != 2", tgt.nspec != 2),
+                                ("no fitted parallax", not tgt.fit_plx),
+                                ("no distance bounds", not tgt.dist_fit),
+                                ("a radius prior", tgt.rad_prior),
+                                ("spectrum weight 0", tgt.spectrum_weight == 0.0)) if off]
+    if bad:
+        raise ValueError(f"{kernel} covers a binary with a fitted parallax, distance bounds, "
+                         "no radius prior and a spectrum: this target has " + ", ".join(bad))
+
+
+def _ablate_id(variant: str) -> int:
+    if variant not in ABLATE_VARIANTS:
+        raise ValueError(f"posterior_ablate: unknown variant {variant!r} (a mask 'PRSW' of "
+                         "0s and 1s, or 'empty')")
+    return len(ABLATE_MASKS) if variant == "empty" else int(variant, 2)
+
+
+def posterior_ablate_reference(p, tgt, variant):
+    """Plain PyTorch version of ``posterior_ablate`` ([B] f32): ``_posterior_plain`` with
+    the mask's sections stubbed; ``empty`` each walker's first parameter."""
+    _ablate_id(variant)
+    section_scope(tgt, "posterior_ablate")
+    iters, _, recip = resolve_dials(tgt)
+    p = p.to(device=tgt.device, dtype=_F32)
+    if variant == "empty":
+        return p[:, 0].clone()
+    t = kernel_tables(tgt)
+    return _posterior_plain(p, tgt, t, t["scal"][0], t["scal"][1], t["scal"][2],
+                            tgt.spectrum_weight * _chi2_weight(tgt), iters, recip,
+                            sections=tuple(c == "1" for c in variant))
+
+
+def posterior_ablate(p, tgt, variant):
+    """S13: K1 v2 over walkers ``p`` [B, ndim] with the sections of the mask ``variant``
+    ("PRSW", ``ABLATE_MASKS``) stubbed, or the launch floor ``empty`` ([B] f32);
+    "1111" is ``log_posterior_fused`` bit for bit."""
+    vid = _ablate_id(variant)
+    section_scope(tgt, "posterior_ablate")
+    resolve_dials(tgt)
+    if p.device.type == "cpu":
+        return posterior_ablate_reference(p, tgt, variant)
+    _require_cuda(p, "posterior_ablate")
+    nT, nG, nd = tgt.D.shape
+    wpb = walkers_per_block(nd, nT * nG, 1 + tgt.nspec)
+    out, args = posterior_launch_args(p, tgt, "posterior_ablate")
+    if args:
+        _launch("posterior_ablate_launch", "posterior_ablate", *args,
+                float(tgt.rad_sigma_frac), wpb, vid, _stream(p.device))
+    return out
+
+
+def posterior_pair(p, tgt, walkers_per_block=None):
+    """S15: K1 v2 with each warp evaluating two walkers in turn ([B] f32), K1's result
+    bit for bit; its plain version is ``log_posterior_fused_reference``.  A block holds
+    ``walkers_per_block`` warps (K1's choice where None), so twice as many walkers."""
+    resolve_dials(tgt)
+    nT, nG, nd = tgt.D.shape
+    if walkers_per_block is not None:
+        _block_walkers(nd, nT * nG, 1 + tgt.nspec, walkers_per_block)
+    if p.device.type == "cpu":
+        return log_posterior_fused_reference(p, tgt)
+    _require_cuda(p, "posterior_pair")
+    wpb = _block_walkers(nd, nT * nG, 1 + tgt.nspec, walkers_per_block)
+    out, args = posterior_launch_args(p, tgt, "posterior_pair")
+    if args:
+        _launch("posterior_pair_launch", "posterior_pair", *args, float(tgt.rad_sigma_frac),
+                wpb, _stream(p.device))
+    return out
+
+
+def _fleet_mode(mode: str, fleet) -> int:
+    if mode not in FLEET_SECTION_MODES:
+        raise ValueError(f"fleet_sections: unknown mode {mode!r} (one of "
+                         f"{list(FLEET_SECTION_MODES)})")
+    if mode == "scalar_rank":
+        n_true = sorted({int(n) for n in fleet.n_data_true.reshape(-1).tolist()})
+        if n_true != [FROZEN_ND]:
+            raise ValueError(f"fleet_sections: scalar_rank compiles in the median ranks of "
+                             f"n_true = {FROZEN_ND}; this fleet's targets have {n_true}")
+    return FLEET_SECTION_MODES.index(mode)
+
+
+def fleet_sections_reference(Wcomb, av, fleet, mode):
+    """Plain PyTorch version of ``fleet_sections`` ([ntgt, nw] f32): K4's plain version
+    with the mode's section stubbed; ``empty`` is ``Wcomb[..., 0] * 0 + av``."""
+    _fleet_mode(mode, fleet)
+    iters, _, recip = resolve_dials(fleet)
+    t = fleet_kernel_tables(fleet)
+    dev = t["D"].device
+    Wcomb, av = Wcomb.to(device=dev, dtype=_F32), av.to(device=dev, dtype=_F32)
+    if mode == "empty":
+        return Wcomb[..., 0] * 0.0 + av
+    return torch.stack([
+        _spectrum_block(Wcomb[i], av[i][:, None], t["D"][i], t["kd"][i], t["data"][i],
+                        t["inv_err"][i], t["VpinvT"][i], t["VT"][i], t["scal"][i, 2], iters,
+                        renorm=mode != "no_renorm", recip=recip, fleet_stat=_fleet_stat(t, i),
+                        matmul=mode != "no_matmul", extinct=mode != "no_extinct",
+                        median=mode != "no_median")[:, 0]
+        for i in range(Wcomb.shape[0])])
+
+
+def fleet_sections(Wcomb, av, fleet, mode):
+    """S14: K4 v2 on the blend weights ``Wcomb`` [ntgt, nw, NO] and extinctions ``av``
+    [ntgt, nw] with the section of ``mode`` (``FLEET_SECTION_MODES``) stubbed
+    ([ntgt, nw] f32); ``full`` and ``scalar_rank`` are ``spectrum_chi2_fleet`` bit for
+    bit, ``scalar_rank`` only on a fleet whose targets all have ``FROZEN_ND`` points."""
+    mid = _fleet_mode(mode, fleet)
+    resolve_dials(fleet)
+    if Wcomb.device.type == "cpu":
+        return fleet_sections_reference(Wcomb, av, fleet, mode)
+    _require_cuda(Wcomb, "fleet_sections")
+    out, args = fleet_spectrum_launch_args(Wcomb, av, fleet)
+    if args:
+        _launch("fleet_sections_launch", "fleet_sections", *args, mid, _stream(Wcomb.device))
+    return out

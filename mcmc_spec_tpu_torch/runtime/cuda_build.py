@@ -22,9 +22,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("log_posterior_fused.cu", "spectrum_chi2.cu", "spectrum_chi2_fleet.cu",
            "log_posterior_fleet_fused.cu", "model_extinct.cu", "median_kary.cu",
-           "segmented_stats.cu", "microbench.cu", "spectrum_recip.cu", "posterior_sections.cu",
-           "posterior_transposed.cu", "median_adaptive.cu", "median_packed.cu",
-           "spectrum_overlap.cu", "fleet_grid_order.cu", "launch_probe.cu", "median_rounds.cu")
+           "segmented_stats.cu", "microbench.cu", "spectrum_recip.cu", "posterior_transposed.cu",
+           "median_adaptive.cu", "median_packed.cu", "spectrum_overlap.cu", "fleet_grid_order.cu",
+           "launch_probe.cu", "median_rounds.cu", "posterior_ablate.cu", "fleet_sections.cu",
+           "posterior_pair.cu")
 HEADERS = ("block_common.cuh", "spectrum_block.cuh", "posterior_body.cuh",
            "spectrum_warp.cuh", "posterior_warp.cuh")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")

@@ -8,8 +8,8 @@ repository root), each run as ``python -m mcmc_spec_tpu_torch.scripts.<name>``:
   posterior K1;
 * ``try_fast_recip``: the receipt for the ``recip_newton`` dial (S4
   ``spectrum_recip``);
-* ``ablate_fused_sections``: K1 with its sections switched off one by one (S12
-  ``posterior_sections``);
+* ``ablate_fused_sections``: K1 with its sections switched off one by one (the
+  JAX script's seven variants, masks of S13 ``posterior_ablate``);
 
 and the candidate redesigns of K1, each against what it would replace:
 
@@ -51,4 +51,14 @@ same names: ``median_tempering_bound`` (and ``_cpu``), ``segmented_median_bound`
 ``anneal_budget_divergence``, ``card_validation`` (for ``tpu_validation``) and
 the recovery fixtures (``recovery_fixtures``, ``synth_recovery_matrix``,
 ``synth_recovery_extra``).
+
+The attribution tools, counterparts of the JAX tracing and ablation scripts of
+the same names, on the production kernels: ``op_table`` (the device op table of
+a ``torch.profiler`` run, shared by the others), ``ablate_matrix`` and
+``ablate_matrix_traced`` (the 2^4 section matrix of K1 v2, S13
+``posterior_ablate``), ``trace_fused_call``, ``trace_stretch``,
+``profile_breakdown`` (``utils.profiling.device_loop_time``),
+``trace_fleet_step`` (K4 v2's sections, S14 ``fleet_sections``),
+``try_fleet_block``, ``try_block_size``, ``try_two_blocks`` (two walkers a warp,
+S15 ``posterior_pair``), ``attr_segmented`` and ``bench_large_nd``.
 """

@@ -29,7 +29,6 @@ import torch
 
 from mcmc_spec_tpu_torch.bench_target import build_bench_target, init_walker_batch
 from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
-from mcmc_spec_tpu_torch.scripts import ablate_fused_sections as ab
 from mcmc_spec_tpu_torch.scripts.timing import describe, resolve_device, timer
 
 NWALK = 32768
@@ -52,7 +51,7 @@ def posterior_transposed_reference(p, tgt):
     """Plain PyTorch version of ``posterior_transposed``: [B] f32, the arithmetic of the
     JAX body ``_posterior_kernel_T``: K1's W path and spectrum block with walkers
     along rows, then the epilogue with walkers along columns."""
-    ab.check_scope(tgt, "posterior_transposed")
+    ck.section_scope(tgt, "posterior_transposed")
     iters, _, recip = ck.resolve_dials(tgt)
     t = ck.kernel_tables(tgt)
     tmin, tmax, med_data = t["scal"][0], t["scal"][1], t["scal"][2]
@@ -121,7 +120,7 @@ def posterior_transposed_reference(p, tgt):
 def posterior_transposed(p, tgt):
     """S8: K1's log-posterior of walkers ``p`` [B, ndim] with the walkers-across-lanes
     epilogue ([B] f32)."""
-    ab.check_scope(tgt, "posterior_transposed")
+    ck.section_scope(tgt, "posterior_transposed")
     ck.resolve_dials(tgt)
     if p.device.type == "cpu":
         return posterior_transposed_reference(p, tgt)

@@ -1,0 +1,545 @@
+"""PyTorch port: the attribution tools and their kernels (CPU).
+
+There is no card here, so the kernels S13 (``posterior_ablate``, K1 v2 with its
+sections gated at compile time), S14 (``fleet_sections``, K4 v2's) and S15
+(``posterior_pair``, two walkers a warp) run their plain versions, which the
+tests hold:
+
+* S13's against the JAX script's ``variant_kernel``
+  (``scripts/ablate_fused_sections.py:42``) patched into K1's pallas_call in
+  interpret mode, for every mask of the 2^4 matrix at both dial sets, within the
+  JAX kernel gate;
+* S14's ``full`` against JAX's ``spectrum_chi2_fleet`` in interpret mode, and its
+  other modes against a numpy float64 statement of
+  ``scripts/trace_fleet_step.py:127-165`` (the JAX variant is nested inside the
+  script's ``main``).  That statement takes the r1-th order statistic as the
+  median where K4 takes the mean of the r1-th and r2-th at the exact dials: the
+  fleet's targets have odd counts, where the two agree;
+* S15's and the ``walkers_per_block`` keyword's results equal K1's and K4's.
+
+Then ``utils.profiling.device_loop_time`` on the CPU, ``scripts.op_table`` on a
+Chrome trace with known events, every new script's ``main`` at a tiny size (and
+a CUDA device without a card raising), the launch signatures against the C
+sources, and fleet target 2's far walkers in both packages.
+"""
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from mcmc_spec_tpu import fleet_pipeline as jax_fleet_pipeline  # noqa: E402
+from mcmc_spec_tpu import pipeline as jax_pipeline  # noqa: E402
+from mcmc_spec_tpu.inference import batched as jb  # noqa: E402
+from mcmc_spec_tpu.inference import fleet as jf  # noqa: E402
+from mcmc_spec_tpu.ops import pallas_kernels as pk  # noqa: E402
+from mcmc_spec_tpu.utils.config import FitConfig as JaxFitConfig  # noqa: E402
+from mcmc_spec_tpu_torch import fleet_pipeline, pipeline, testing  # noqa: E402
+from mcmc_spec_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from mcmc_spec_tpu_torch.runtime import cuda_build  # noqa: E402
+from mcmc_spec_tpu_torch.scripts import (  # noqa: E402
+    ablate_matrix,
+    ablate_matrix_traced,
+    attr_segmented,
+    bench_large_nd,
+    op_table,
+    profile_breakdown,
+    trace_fleet_step,
+    trace_fused_call,
+    trace_stretch,
+    try_block_size,
+    try_fleet_block,
+    try_two_blocks,
+)
+from mcmc_spec_tpu_torch.utils import profiling  # noqa: E402
+from mcmc_spec_tpu_torch.utils.config import FitConfig  # noqa: E402
+from tests.test_fleet import _make_target, _walkers  # noqa: E402
+from tests.test_torch_fleet import _assert_kernel_gate, _to_port  # noqa: E402
+from tests.test_torch_fleet_k4 import _c_signature  # noqa: E402
+from tests.test_torch_scripts import (  # noqa: E402
+    EXACT,
+    FAST,
+    _binary_target,
+    _binary_walkers,
+    _gate,
+    _load,
+)
+
+DIALS = {"exact": EXACT, "fast": FAST}
+GATES = ("do_phot", "do_priors", "do_spectrum", "do_w")
+# odd true counts: the r1-th order statistic is the median (the numpy statement's)
+ODD_SPECS = [(301, 2, 11), (241, 1, 13)]
+ODD_ND = 301
+
+
+# ---------------------------------------------------------------------------
+# S13: the 2^4 section matrix of K1 v2
+
+
+@pytest.mark.parametrize("dials", ["exact", "fast"])
+@pytest.mark.parametrize("mask", ck.ABLATE_MASKS)
+def test_posterior_ablate_reference_matches_jax(monkeypatch, mask, dials):
+    jmod = _load("ablate_fused_sections")
+    jt, tt = _binary_target(DIALS[dials])
+    P = _binary_walkers(jt)
+    flags = dict(zip(GATES, (c == "1" for c in mask)))
+    monkeypatch.setattr(pk, "_posterior_kernel", jmod.variant_kernel(**flags))
+    want = np.asarray(pk.log_posterior_fused.__wrapped__(jnp.asarray(P), jt, interpret=True))
+    got = ck.posterior_ablate_reference(torch.from_numpy(P), tt, mask).numpy()
+    _gate(got, want)
+    before = dict(ck.LAUNCHES)
+    np.testing.assert_array_equal(ck.posterior_ablate(torch.from_numpy(P), tt, mask).numpy(), got)
+    assert ck.LAUNCHES == before  # a CPU tensor takes the plain version, no launch
+    full = ck.log_posterior_fused_reference(torch.from_numpy(P), tt).numpy()
+    if mask == "1111":
+        np.testing.assert_array_equal(got, full)
+    else:
+        assert not np.allclose(got, full, equal_nan=True)
+
+
+def test_posterior_ablate_masks_ids_and_floor():
+    # the JAX matrix's order: itertools.product((True, False), repeat=4) over PRSW
+    assert ck.ABLATE_MASKS[0] == "1111" and ck.ABLATE_MASKS[-1] == "0000"
+    assert len(set(ck.ABLATE_MASKS)) == 16 and ck.ABLATE_VARIANTS[-1] == "empty"
+    ids = [ck._ablate_id(m) for m in ("1111", "1000", "0001", "0000", "empty")]
+    assert ids == [15, 8, 1, 0, 16]
+    src = (cuda_build.CSRC / "posterior_ablate.cu").read_text()
+    table = src[src.index("kVariants[] = {"):src.index("};", src.index("kVariants[] = {"))]
+    assert [f"ablate_variant<{k}>()" in table for k in range(16)] == [True] * 16
+    assert table.index("ablate_variant<15>()") < table.index("posterior_empty_kernel")
+    jt, tt = _binary_target(EXACT)
+    P = torch.from_numpy(_binary_walkers(jt))
+    np.testing.assert_array_equal(ck.posterior_ablate(P, tt, "empty").numpy(), P[:, 0].numpy())
+
+
+@pytest.mark.parametrize("kw", [dict(nspec=3), dict(rad_prior=True), dict(fit_plx=False),
+                                dict(dist_fit=False), dict(spectrum_weight=0.0)],
+                         ids=["nspec3", "rad_prior", "no_plx", "no_dist_fit", "nospec"])
+def test_posterior_ablate_rejects_out_of_scope_targets(kw):
+    jt, tt = _binary_target(EXACT)
+    tt = dataclasses.replace(tt, **kw)
+    P = torch.from_numpy(_binary_walkers(jt, n=2))
+    for fn in (ck.posterior_ablate, ck.posterior_ablate_reference):
+        with pytest.raises(ValueError, match="posterior_ablate covers"):
+            fn(P, tt, "1111")
+    with pytest.raises(ValueError, match="unknown variant"):
+        ck.posterior_ablate(P, tt, "111")
+
+
+def test_ablate_matrix_moebius_terms_sum_back():
+    rng = np.random.RandomState(0)
+    t = {m: float(rng.rand()) for m in ck.ABLATE_MASKS}
+    c = ablate_matrix.moebius(t)
+    for m in ck.ABLATE_MASKS:
+        assert abs(sum(c[s] for s in ablate_matrix._subsets(m)) - t[m]) < 1e-12
+    # an additive matrix has no interaction terms
+    cost = dict(zip("PRSW", (0.1, 0.2, 0.4, 0.8)))
+    add = {m: 0.05 + sum(cost[g] for g, b in zip("PRSW", m) if b == "1")
+           for m in ck.ABLATE_MASKS}
+    terms = ablate_matrix.moebius(add)
+    assert abs(terms["0000"] - 0.05) < 1e-12 and abs(terms["0010"] - 0.4) < 1e-12
+    assert all(abs(v) < 1e-12 for m, v in terms.items() if m.count("1") > 1)
+    marg = ablate_matrix.marginals(add)
+    assert all(abs(d - 0.8) < 1e-12 for d in marg["W"].values()) and len(marg["W"]) == 8
+    assert ablate_matrix.term_name("1010") == "c_{PS}"
+    assert ablate_matrix.term_name("0000") == "c_{}"
+
+
+# ---------------------------------------------------------------------------
+# S14: K4 v2's sections
+
+
+@pytest.fixture(scope="module")
+def odd_fleet():
+    """(JAX stacked fleet, port fleet), float32, odd true counts padded to ODD_ND."""
+    padded = [_make_target(nd, nc, seed, pad_nd=ODD_ND, pad_nc=2, dtype=jnp.float32)
+              for nd, nc, seed in ODD_SPECS]
+    jfl = jf.stack_targets(padded)
+    return jfl, _to_port(jfl, torch.float32)
+
+
+def _odd_walkers(nw=9, seed=5):
+    rows = []
+    for i in range(len(ODD_SPECS)):
+        w = np.array(_walkers(nw - 2, seed=seed + i))
+        av0 = w[0].copy()
+        av0[2] = 0.0
+        rows.append(np.concatenate([w, av0[None], np.ones((1, 6))]))
+    return np.stack(rows).astype(np.float32)
+
+
+def _fleet_inputs(jfl):
+    P = _odd_walkers()
+    Wcomb = jax.vmap(jb._forward_small)(jnp.asarray(P), jfl)[4]
+    av = jnp.asarray(P[..., jfl.nspec])
+    return Wcomb, av, torch.from_numpy(np.array(Wcomb)), torch.from_numpy(np.array(av))
+
+
+@pytest.mark.parametrize("dials", ["exact", "fast"])
+def test_fleet_sections_full_matches_pallas_interpret(odd_fleet, dials):
+    d = DIALS[dials]
+    jfl = dataclasses.replace(odd_fleet[0], **d)
+    Wcomb, av, Wt, avt = _fleet_inputs(jfl)
+    ntgt, nT, nG, nd = jfl.D.shape
+    ref = np.asarray(pk.spectrum_chi2_fleet(
+        Wcomb, av, jfl.D.reshape(ntgt, nT * nG, nd), jfl.ext_k_data, jfl.data_flux,
+        jfl.data_err, jfl.V, jfl.Vpinv, jfl.med_data, jfl.n_data_true, interpret=True,
+        iters=d["median_iters"], mm_passes=d["matmul_passes"], recip=d["recip_newton"]))
+    tf = dataclasses.replace(odd_fleet[1], **d)
+    got = ck.fleet_sections_reference(Wt, avt, tf, "full").numpy()
+    _assert_kernel_gate(got, ref)
+    before = dict(ck.LAUNCHES)
+    np.testing.assert_array_equal(ck.fleet_sections(Wt, avt, tf, "full").numpy(), got)
+    np.testing.assert_array_equal(ck.spectrum_chi2_fleet_reference(Wt, avt, tf).numpy(), got)
+    assert ck.LAUNCHES == before
+
+
+def _numpy_variant(mode, W, av, t):
+    """``scripts/trace_fleet_step.py:127-165`` in numpy float64 on the port's fleet
+    tables: the median the r1-th order statistic, the exact reciprocal."""
+    f = lambda x: np.asarray(x, dtype=np.float64)
+    W, av = f(W), f(av)
+    if mode == "empty":
+        return W[..., 0] * 0.0 + av
+    out = []
+    for i in range(W.shape[0]):
+        D, kd, data, ie = f(t["D"][i]), f(t["kd"][i]), f(t["data"][i]), f(t["inv_err"][i])
+        Vp, VT = f(t["VpinvT"][i]), f(t["VT"][i])
+        med_data, inv_n = float(t["scal"][i, 2]), float(t["scal"][i, 3])
+        r1 = int(t["ranks"][i, 0])
+        a = av[i][:, None]
+        model = W[i][:, :1] + np.zeros_like(kd)[None, :] if mode == "no_matmul" else W[i] @ D
+        if mode != "no_extinct":
+            model = model * np.where(a > 0, np.exp(ck.LN10_04 * a * kd[None, :]), 1.0)
+        if mode != "no_median":
+            model = model * (med_data / np.sort(model, axis=1)[:, r1 - 1:r1])
+        if mode != "no_renorm":
+            frac = data[None, :] / model
+            c = frac @ Vp.T
+            data_renorm = data[None, :] / (c @ VT)
+        else:
+            data_renorm = data[None, :]
+        resid = (model - data_renorm) * ie[None, :]
+        out.append((resid * resid).sum(axis=1) * inv_n)
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("mode", [m for m in ck.FLEET_SECTION_MODES if m != "scalar_rank"])
+def test_fleet_sections_reference_matches_the_numpy_statement(odd_fleet, mode):
+    tf = dataclasses.replace(odd_fleet[1], **EXACT)
+    _, _, Wt, avt = _fleet_inputs(dataclasses.replace(odd_fleet[0], **EXACT))
+    if mode == "no_matmul":
+        # the stub row is each walker's weight of grid point 0, zero for most walkers (a
+        # zero median, a chi^2 that is not finite): put each walker's largest weight there
+        Wt = trace_fleet_step.finite_stub(Wt)
+    t = ck.fleet_kernel_tables(tf)
+    assert [int(r) for r in t["ranks"][:, 0]] == [int(r) for r in t["ranks"][:, 1]]  # odd counts
+    got = ck.fleet_sections_reference(Wt, avt, tf, mode).numpy()
+    want = _numpy_variant(mode, Wt.numpy(), avt.numpy(), t)
+    assert np.isfinite(want).any()
+    _assert_kernel_gate(got, want)
+    np.testing.assert_array_equal(ck.fleet_sections(Wt, avt, tf, mode).numpy(), got)
+    if mode != "full":
+        assert not np.allclose(got, ck.spectrum_chi2_fleet_reference(Wt, avt, tf).numpy())
+
+
+def test_fleet_sections_scalar_rank_needs_the_frozen_count(odd_fleet):
+    tf = odd_fleet[1]
+    _, _, Wt, avt = _fleet_inputs(odd_fleet[0])
+    with pytest.raises(ValueError, match="scalar_rank compiles in the median ranks"):
+        ck.fleet_sections(Wt, avt, tf, "scalar_rank")
+    with pytest.raises(ValueError, match="unknown mode"):
+        ck.fleet_sections(Wt, avt, tf, "no_priors")
+    src = (cuda_build.CSRC / "fleet_sections.cu").read_text()
+    assert f"kFrozenNd = {ck.FROZEN_ND};" in src
+    # the C table's modes in the order of FLEET_SECTION_MODES
+    table = src[src.index("kModes[] = {"):src.index("};", src.index("kModes[] = {"))]
+    assert [line.split("//")[1].strip() for line in table.splitlines() if "//" in line] == \
+        list(ck.FLEET_SECTION_MODES)
+
+
+def test_fleet_sections_scalar_rank_on_a_frozen_fleet():
+    from mcmc_spec_tpu_torch.bench_target import build_bench_target, init_walker_batch
+    from mcmc_spec_tpu_torch.inference.fleet import stack_targets
+
+    tgt, truth = build_bench_target(torch.float32, device="cpu", nd=ck.FROZEN_ND,
+                                    grid_step=16.0)
+    fleet = dataclasses.replace(stack_targets([tgt, tgt]), **FAST)
+    P = torch.stack([init_walker_batch(tgt, truth, 4, seed=i) for i in range(2)])
+    W, av = trace_fleet_step.fleet_wcomb(P, fleet)
+    np.testing.assert_array_equal(ck.fleet_sections(W, av, fleet, "scalar_rank").numpy(),
+                                  ck.spectrum_chi2_fleet(W, av, fleet).numpy())
+
+
+# ---------------------------------------------------------------------------
+# S15 and the walkers-per-block keyword
+
+
+def test_posterior_pair_and_blocks_are_k1():
+    jt, tt = _binary_target(FAST)
+    P = torch.from_numpy(_binary_walkers(jt, n=21))  # 25 walkers: an odd count
+    k1 = ck.log_posterior_fused_reference(P, tt).numpy()
+    np.testing.assert_array_equal(ck.posterior_pair(P, tt).numpy(), k1)
+    for w in (1, 3, 8):
+        np.testing.assert_array_equal(ck.log_posterior_fused(P, tt, walkers_per_block=w).numpy(),
+                                      k1)
+        np.testing.assert_array_equal(ck.posterior_pair(P, tt, walkers_per_block=w).numpy(), k1)
+    for bad in (0, 9, 2.5):
+        for fn in (ck.log_posterior_fused, ck.posterior_pair):
+            with pytest.raises(ValueError, match="walkers a block"):
+                fn(P, tt, walkers_per_block=bad)
+    src = (cuda_build.CSRC / "posterior_pair.cu").read_text()
+    assert "(2 * blockIdx.x + turn) * wpb + warp" in src and "__syncwarp()" in src
+
+
+def test_block_keyword_on_k4_and_its_launch(odd_fleet):
+    tf = dataclasses.replace(odd_fleet[1], **FAST)
+    _, _, Wt, avt = _fleet_inputs(dataclasses.replace(odd_fleet[0], **FAST))
+    ref = ck.spectrum_chi2_fleet_reference(Wt, avt, tf).numpy()
+    for w in (1, 5, 8):
+        np.testing.assert_array_equal(
+            ck.spectrum_chi2_fleet(Wt, avt, tf, walkers_per_block=w).numpy(), ref)
+        _, args = ck.fleet_spectrum_launch_args(Wt, avt, tf, walkers_per_block=w)
+        assert args[-1] == w
+    _, args = ck.fleet_spectrum_launch_args(Wt, avt, tf)
+    assert args[-1] == ck.walkers_per_block(ODD_ND, Wt.shape[-1], 0)
+    with pytest.raises(ValueError, match="walkers a block"):
+        ck.spectrum_chi2_fleet(Wt, avt, tf, walkers_per_block=0)
+    # a count whose rows do not fit a block's shared memory
+    nd = ck.warp_max_nd(56, 0)
+    with pytest.raises(ValueError, match="walkers a block"):
+        ck._block_walkers(nd, 56, 0, 2)
+    assert ck._block_walkers(nd, 56, 0, 1) == 1 and ck._block_walkers(nd, 56, 0) == 1
+    assert try_fleet_block.fitting_blocks(nd, 56, 0) == [1]
+
+
+@pytest.mark.parametrize("name,counts", [("posterior_ablate_launch", (20, 14, 3, 2)),
+                                         ("posterior_pair_launch", (20, 14, 3, 1)),
+                                         ("fleet_sections_launch", (11, 8, 0, 0))])
+def test_launch_signatures_match_the_sources(name, counts):
+    pointers, ints, floats, ints2 = counts
+    assert ck._SIGNATURES[name] == _c_signature(name)
+    assert ck._SIGNATURES[name] == ([ck._P] * pointers + [ck._I] * ints + [ck._F] * floats
+                                    + [ck._I] * ints2 + [ck._P])
+    for src in ("posterior_ablate.cu", "fleet_sections.cu", "posterior_pair.cu"):
+        assert src in cuda_build.SOURCES and (cuda_build.CSRC / src).is_file()
+
+
+def test_gates_default_to_the_production_body():
+    warp = (cuda_build.CSRC / "posterior_warp.cuh").read_text()
+    assert ("template <bool kPhot = true, bool kPriors = true, bool kSpectrum = true, "
+            "bool kW = true>") in warp
+    spec = (cuda_build.CSRC / "spectrum_warp.cuh").read_text()
+    assert "template <bool kMatmul = true, bool kExtinct = true, bool kMedian = true>" in spec
+    # K1 and K5 call the bodies without template arguments: every section on
+    for src in ("log_posterior_fused.cu", "log_posterior_fleet_fused.cu"):
+        assert "posterior_warp(a, " in (cuda_build.CSRC / src).read_text()
+    for src in ("spectrum_chi2.cu", "spectrum_chi2_fleet.cu"):
+        assert "spectrum_warp(Wcomb" in (cuda_build.CSRC / src).read_text()
+
+
+# ---------------------------------------------------------------------------
+# device_loop_time and the op table
+
+
+def test_device_loop_time_perturbs_each_call_on_the_cpu():
+    seen = []
+
+    def fn(a, b):
+        seen.append(a.clone())
+        return a * b
+
+    a0 = torch.ones(3, dtype=torch.float64)
+    b = torch.full((3,), 2.0, dtype=torch.float64)
+    dt = profiling.device_loop_time(fn, a0, b, rep=5)
+    assert dt > 0
+    assert len(seen) == 1 + 5  # the warm-up call, then the timed ones
+    for i, a in enumerate(seen[1:]):
+        torch.testing.assert_close(a, a0 + 1e-9 * i, rtol=0, atol=0)
+    assert not torch.equal(seen[1], seen[2])
+
+
+def _capture_refused():
+    raise RuntimeError("CUDA error: operation not permitted when stream is capturing")
+
+
+def test_capture_error_names_the_first_op_in_the_chain():
+    try:
+        try:
+            _capture_refused()
+        except RuntimeError:
+            # what the graph's exit raises after a refused op
+            raise RuntimeError("operation failed due to a previous error during capture")
+    except RuntimeError as exc:
+        msg = profiling._blocking_op(exc)
+    assert "test_torch_attribution.py" in msg
+    assert 'raise RuntimeError("CUDA error: operation not permitted' in msg
+    assert "operation not permitted when stream is capturing" in msg
+    assert issubclass(profiling.CaptureError, RuntimeError)
+
+
+def _trace_fixture():
+    ev = lambda cat, name, ts, dur: {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                                     "pid": 0, "tid": 0}
+    return {"traceEvents": [
+        {"ph": "M", "name": "process_name", "pid": 0, "args": {"name": "x"}},
+        ev("cpu_op", "aten::outer", 0.0, 100.0),
+        ev("cpu_op", "aten::inner", 70.0, 10.0),
+        ev("python_function", "pyfn", 30.0, 10.0),
+        ev("kernel", "k1(float*)", 10.0, 20.0),
+        ev("kernel", "k2", 15.0, 10.0),
+        ev("kernel", "k2", 40.0, 5.0),
+        ev("kernel", "k1(float*)", 50.0, 20.0),
+        ev("gpu_memcpy", "Memcpy HtoD", 80.0, 10.0),
+        {"ph": "f", "cat": "ac2g", "name": "flow", "ts": 12.0, "id": 1},
+    ]}
+
+
+def test_op_table_on_known_events(tmp_path):
+    trace = _trace_fixture()
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps(trace))
+    for source in (trace, str(path)):
+        tab = op_table.op_table(source, n_gaps=2)
+        assert [k["name"] for k in tab["kernels"]] == ["k1(float*)", "k2", "Memcpy HtoD"]
+        k1 = tab["kernels"][0]
+        assert k1["launches"] == 2 and k1["total_ms"] == pytest.approx(0.040)
+        assert k1["mean_ms"] == pytest.approx(0.020) and k1["share"] == pytest.approx(40 / 65)
+        assert tab["device_ms"] == pytest.approx(0.065)
+        assert tab["window_ms"] == pytest.approx(0.100)
+        # busy: [10, 30] (k2 inside), [40, 45], [50, 70], [80, 90]
+        assert tab["busy_ms"] == pytest.approx(0.055) and tab["busy_share"] == pytest.approx(0.55)
+        # the two longest gaps, [30, 40] and [70, 80]: the outer op alone overlaps the
+        # first; the inner one ties the outer on the second and is the innermost
+        assert [(g["start_ms"], g["ms"], g["host_op"]) for g in tab["gaps"]] == [
+            (pytest.approx(0.030), pytest.approx(0.010), "aten::outer"),
+            (pytest.approx(0.070), pytest.approx(0.010), "aten::inner")]
+        assert op_table.launches(tab, "k") == 4 and op_table.launches(tab, "Memcpy") == 1
+        assert op_table.device_ms(tab, "k2") == pytest.approx(0.015)
+    assert op_table.short_name("k1(float*)") == "k1"
+    empty = op_table.op_table({"traceEvents": []})
+    assert empty["kernels"] == [] and empty["busy_share"] == 0.0 and empty["gaps"] == []
+
+
+def test_trace_calls_on_the_cpu_has_no_device_op(capsys):
+    tab = op_table.trace_calls(lambda: torch.ones(8) @ torch.ones(8), n=3)
+    assert tab["kernels"] == [] and tab["window_ms"] > 0
+    op_table.print_table(tab, "cpu", per=3)
+    assert "device op time 0.0000 ms" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the scripts' mains at a tiny size on the CPU
+
+TINY = dict(grid_step=16.0)
+MAINS = {
+    "ablate_matrix": (ablate_matrix.main, dict(nwalk=16, nd=96, **TINY)),
+    "ablate_matrix_traced": (ablate_matrix_traced.main, dict(nwalk=16, nd=96, **TINY)),
+    "trace_fused_call": (trace_fused_call.main, dict(nwalk=16, nds=(96, 192), **TINY)),
+    "trace_stretch": (trace_stretch.main, dict(nwalk=16, nd=96, n_steps=4, **TINY)),
+    "profile_breakdown": (profile_breakdown.main, dict(nwalk=16, nd=96, rep=2, n_steps=2,
+                                                       **TINY)),
+    "trace_fleet_step": (trace_fleet_step.main, dict(ntgt=2, nwalk=8, nd=96, n_calls=2, **TINY)),
+    "try_fleet_block": (try_fleet_block.main, dict(ntgt=2, nwalk=8, nd=96, **TINY)),
+    "try_block_size": (try_block_size.main, dict(nwalk=16, nds=(96, 192), n_steps=2, **TINY)),
+    "try_two_blocks": (try_two_blocks.main, dict(nwalk=16, nd=96, **TINY)),
+    "attr_segmented": (attr_segmented.main, dict(nwalk=8, nd=300, **TINY)),
+    "bench_large_nd": (bench_large_nd.main, dict(nwalk=8, nds=(300,), **TINY)),
+}
+
+
+@pytest.mark.parametrize("name", list(MAINS))
+def test_main_runs_on_the_cpu(name, capsys):
+    fn, kw = MAINS[name]
+    out = fn(device="cpu", **kw)
+    text = capsys.readouterr().out
+    assert "host-clock times of the plain versions, not device times" in text
+    if name == "ablate_matrix":
+        assert set(out["ms"]) == set(ck.ABLATE_MASKS) and "c_{PRSW}" in text
+        assert all(v > 0 for v in out["ms"].values())
+        mean, most = out["row_list"]
+        assert 0 < mean <= most <= 8 and "production row list" in text
+    elif name == "ablate_matrix_traced":  # no device time on the CPU: nothing fitted
+        assert all(r["kernel_ms_device"] is None for r in out["rows"].values())
+        assert "nothing fitted" in text
+    elif name == "trace_fused_call":
+        assert set(out["rows"]) == {96, 192} and out["fits"] == []
+        assert out["rows"][96]["walkers_per_sm"] >= 8
+    elif name == "trace_stretch":
+        assert out["k1_launches"] == 0 and out["table"]["window_ms"] > 0
+    elif name == "profile_breakdown":
+        assert "log_posterior_batch (K1)" in out["ms"] and "stretch_step" in out["ms"]
+        assert out["not_captured"] == {}  # the host loop on the CPU captures nothing
+    elif name == "trace_fleet_step":
+        assert set(out["modes"]) == set(trace_fleet_step.MODES)
+        assert set(out["routes"]) == {label for label, _, _ in trace_fleet_step.ROUTES}
+    elif name == "try_fleet_block":
+        assert sorted(out["blocks"]) == list(range(1, 9)) and out["frozen"] is None
+    elif name == "try_block_size":
+        assert sorted(out["rates"]) == list(range(1, 9)) and set(out["calls"]) == {96, 192}
+    elif name == "try_two_blocks":
+        assert set(out) == {"k1_8", "k1_4", "pair_4", "pair_8"}
+    elif name == "attr_segmented":
+        assert set(out) == {"production", "exact"}
+        assert {"K6", "+K7", "+K8", "+K9", "K9 alone"} <= set(out["exact"])
+    elif name == "bench_large_nd":
+        assert set(out[300]["ms"]) == {"segmented", "xla", "sp_S1"}
+        assert out[300]["sp1_vs_seg_rel"] == 0.0
+
+
+@pytest.mark.parametrize("name", list(MAINS))
+def test_cuda_device_without_a_card_raises(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn, kw = MAINS[name]
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        fn(device="cuda", **kw)
+
+
+# ---------------------------------------------------------------------------
+# fleet target 2's far walkers: the fixture, in both packages
+
+
+def _top_third(dirname):
+    chis = np.atleast_1d(np.genfromtxt(os.path.join(dirname, "optimize_cs.txt")))
+    return np.sort(chis)[: len(chis) // 3]
+
+
+def test_fleet_target_2_far_walkers_in_both_packages(tmp_path, monkeypatch):
+    """Target 2 of ``write_fleet_dirs`` draws its noise with seed 2, and its error column
+    is the signed draw itself (``make_synthetic_observation``, as in the JAX pipeline):
+    at point 38 |err| / flux is 9.8e-8, a hundred times below any other target's least,
+    so that one point sets the chi^2 landscape.  Both packages' annealers leave most of
+    target 2's top third above 1e4 and none of target 0's."""
+    nd, nwalk, nstep = 200, 96, 10
+    testing.write_fleet_dirs(str(tmp_path), [nd, nd - 8, nd - 16], [2, 1, 2], nwalk=nwalk,
+                             nstep=nstep)
+    monkeypatch.chdir(tmp_path)
+    ratio = {}
+    for t in (0, 1, 2):
+        d = np.loadtxt(f"synth_obs_t{t}.txt")
+        ratio[t] = np.abs(d[:, 2]) / np.abs(d[:, 1])
+    assert int(np.argmin(ratio[2])) == 38 and ratio[2].min() < 1e-7
+    assert min(ratio[0].min(), ratio[1].min()) > 1e-6
+    counts = {}
+    for t in (2, 0):
+        cfg = FitConfig.from_file(f"param_synth_t{t}.txt")
+        cfg.dirname = f"port{t}"
+        ctx = pipeline.setup_context(cfg, device="cpu", pad_nd=nd, pad_nc=2)
+        fleet_pipeline.run_fleet_optimize([ctx])
+        jcfg = JaxFitConfig.from_file(f"param_synth_t{t}.txt")
+        jcfg.dirname = f"jax{t}"
+        jax_fleet_pipeline.run_fleet_optimize([jax_pipeline.setup_context(jcfg, pad_nd=nd,
+                                                                          pad_nc=2)])
+        for pkg in ("port", "jax"):
+            top = _top_third(f"{pkg}{t}")
+            assert len(top) == nwalk // 3
+            counts[(pkg, t)] = int((top > 1e4).sum())
+    for pkg in ("port", "jax"):
+        assert counts[(pkg, 2)] >= 3 * (nwalk // 3) // 4, counts
+        assert counts[(pkg, 0)] == 0, counts

@@ -7,10 +7,11 @@ shim whose ``pallas_call`` runs in interpret mode.  On the same numpy-seeded
 inputs the plain versions of the port's kernels must give
 
 * S10 ``fma_chains`` and S11 ``median_only``: the same bits;
-* S4 ``spectrum_recip`` and S12 ``posterior_sections``: the JAX package's kernel
-  gate (identical finiteness, rtol 5e-5, atol 1e-4 * max|ref|), at the exact
-  dials (31, 6, 0) and (14, 6, 2).  ``matmul_passes = 6`` is the f32 product,
-  which the port computes for every value of the dial.
+* S4 ``spectrum_recip`` and the section variants ``posterior_sections`` (S13
+  masks): the JAX package's kernel gate (identical finiteness, rtol 5e-5,
+  atol 1e-4 * max|ref|), at the exact dials (31, 6, 0) and (14, 6, 2).
+  ``matmul_passes = 6`` is the f32 product, which the port computes for every
+  value of the dial.
 """
 import dataclasses
 import functools
