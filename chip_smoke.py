@@ -200,6 +200,13 @@ Phases, each of which exits non-zero on failure:
    CUDA graph, within 25 % of K1 alone under ``torch.profiler``, and the
    composition's capture refused at its host read), and ``scripts.op_table`` over
    4 stretch steps of 8,192 walkers (exactly 8 K1 launches).
+17. the kernel build cache (``MCMC_SPEC_COMPILE_CACHE``): one child process
+   with the variable set to phase 2's build directory by its path (the
+   "directory" form) finds the library built there, with nvcc made to raise if
+   it were asked for, launches K1 once on 1,024 bench walkers at nd = 1,808 at
+   the production dials and holds it against its plain version
+   (``scripts.compile_cache_micro``'s arm); the child's wall time and the
+   library's name are printed (budget ~15 s; the cold build is the receipts').
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its bytes (each input read once, the
@@ -3781,6 +3788,34 @@ def attribution_phase(dev, smi, tgt, truth):
             "s13": s13, "s14": s14, "loop_ms": loop_ms, "alone_ms": alone}
 
 
+# phase 17: the kernel build cache, one arm of scripts/compile_cache_micro.py in a child process
+CACHE_BUDGET_S = 15
+
+
+def cache_phase(smi):
+    """Phase 17: a child process with ``MCMC_SPEC_COMPILE_CACHE`` set to this run's build
+    directory by its path loads the library that phase 2 built, without nvcc, and holds
+    one K1 launch against its plain version at the production dials."""
+    from mcmc_spec_tpu_torch.runtime import cuda_build
+    from mcmc_spec_tpu_torch.scripts import compile_cache_micro as micro
+
+    lib = cuda_build.library_path()
+    require(lib.exists(), f"phase 2's library {lib} is missing")
+    try:
+        rec = micro.run_arm("cache", lib.parent, forbid_nvcc=True)
+    except RuntimeError as e:  # the child failed: nvcc asked for, or K1 not launched
+        raise PhaseError(f"phase 17's child: {e}") from None
+    print(f"[cache] {smi}: MCMC_SPEC_COMPILE_CACHE={lib.parent}: the child found {lib.name} "
+          f"(loaded in {rec['library_s']:.3f} s, no nvcc), K1 on {rec['walkers']} walkers at "
+          f"nd = {micro.ND}: {rec['outside']} outside the gate (max rel {rec['max_rel_err']}); "
+          f"child wall {rec['wall_s']:.3f} s (budget {CACHE_BUDGET_S} s)")
+    require(rec["lib"] == str(lib) and rec["built"] is False,
+            f"the child did not load phase 2's library: {rec['lib']}, built {rec['built']}")
+    require(rec["launches"] == 1, f"the child launched K1 {rec['launches']} times, not once")
+    require(micro.in_gate(rec), f"the child's K1 left its gate: {rec['outside']} walkers outside")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s = {}
@@ -3812,6 +3847,7 @@ def main() -> int:
     finally:
         shutil.rmtree(fit_root, ignore_errors=True)
     attr = timed("attribution", attribution_phase, dev, smi, tgt, truth)
+    timed("cache", cache_phase, smi)
     probes_s = phase_s["probes"]
     print(f"[probes] phase 10 in {probes_s:.1f} s (budget {PROBES_BUDGET_S} s"
           + (")" if probes_s <= PROBES_BUDGET_S else ", OVER BUDGET)"))

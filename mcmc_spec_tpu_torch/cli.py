@@ -45,6 +45,7 @@ from mcmc_spec_tpu_torch.pipeline import (
     setup_context,
 )
 from mcmc_spec_tpu_torch.utils.config import FitConfig
+from mcmc_spec_tpu_torch.utils.flags import enable_persistent_compile_cache
 
 USAGE = ("usage: -f paramfile [-f paramfile2 ...] [-o True|False] [-e True|False] "
          "[--noplots] [--nospec] "
@@ -155,6 +156,11 @@ def main(argv=None):
             f"{local_ranks} ranks on this host, {torch.cuda.device_count()} CUDA devices: "
             "NCCL runs one rank on each card; "
             f"{_launch_line(argv, torch.cuda.device_count())} with a mesh of that many ranks")
+
+    # before the first dispatch: a run whose kernels were built before (by this or another
+    # process, into the same directory) loads them without nvcc (MCMC_SPEC_COMPILE_CACHE=0
+    # opts out)
+    enable_persistent_compile_cache()
 
     cfgs = [FitConfig.from_file(p) for p in parfiles]
     if nospec:

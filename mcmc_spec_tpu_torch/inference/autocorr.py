@@ -71,6 +71,32 @@ def _auto_window(taus: np.ndarray, c: float) -> int:
     return len(taus) - 1
 
 
+def gelman_rubin(chain: np.ndarray) -> np.ndarray:
+    """Split-R-hat per parameter for ``chain [nsteps, nwalkers, ndim]``.
+
+    The standard split-chain potential-scale-reduction diagnostic (not in the
+    reference, which relies on the autocorrelation gate alone); values near 1
+    indicate the walkers sample the same distribution.
+    """
+    chain = np.asarray(chain, dtype=np.float64)
+    n, w, d = chain.shape
+    half = n // 2
+    seqs = np.concatenate([chain[:half], chain[half : 2 * half]], axis=1)  # [half, 2w, d]
+    means = seqs.mean(axis=0)  # [2w, d]
+    variances = seqs.var(axis=0, ddof=1)  # [2w, d]
+    W = variances.mean(axis=0)
+    B = half * means.var(axis=0, ddof=1)
+    var_hat = (half - 1) / half * W + B / half
+    return np.sqrt(var_hat / np.maximum(W, 1e-300))
+
+
+def effective_sample_size(chain: np.ndarray) -> np.ndarray:
+    """ESS per parameter: total samples / integrated autocorrelation time."""
+    chain = np.asarray(chain)
+    taus = integrated_time(chain)
+    return chain.shape[0] * chain.shape[1] / np.maximum(taus, 1.0)
+
+
 def converged(taus, n_steps: int, old_taus=None, factor: float = 50.0, rtol: float = 0.1):
     """The reference's convergence gate (mft6.py:1518-1522)."""
     taus = np.asarray(taus)

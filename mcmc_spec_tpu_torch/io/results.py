@@ -64,6 +64,26 @@ def write_samples(dirname: str, samples: np.ndarray):
         write_sample_block(f, samples, _pandas_or_none())
 
 
+def write_samples_streamed(dirname: str, blocks) -> int:
+    """``samples.txt`` from an iterable of [rows, ndim] blocks, O(block) RAM.
+
+    The streaming write for production-scale chains (a config-5 fleet chain is
+    ~13 GB; concatenating it for one :func:`write_samples` call holds twice
+    that).  Writes the bytes of :func:`write_samples` on the concatenated
+    blocks (both go through :func:`write_sample_block`).  Returns the number
+    of rows written.
+    """
+    path = os.path.join(dirname, "samples.txt")
+    n = 0
+    pd = _pandas_or_none()
+    with open(path, "w") as f:
+        for b in blocks:
+            arr = np.asarray(b)
+            write_sample_block(f, arr, pd)
+            n += len(arr)
+    return n
+
+
 def read_samples(dirname: str) -> np.ndarray:
     """Read ``samples.txt`` back (reference format).
 

@@ -194,3 +194,14 @@ class AvProfile:
         """(log_d_nodes, mu_nodes, sig_nodes) tensors for tent interpolation."""
         as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
         return as_t(np.log(self.dist_pc)), as_t(self.av_mu), as_t(self.av_sig)
+
+    def device_tables(self, n=256, dtype=torch.float32, device="cuda"):
+        """(log_d_lo, log_d_step, mu_tab, sig_tab) tensors on a uniform log-distance grid."""
+        log_d = np.log(self.dist_pc)
+        lo, hi = float(log_d.min()), float(log_d.max())
+        step = (hi - lo) / (n - 1) if hi > lo else 1.0
+        grid = lo + step * np.arange(n)
+        mu = np.interp(grid, log_d, self.av_mu)
+        sig = np.interp(grid, log_d, self.av_sig)
+        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        return as_t(lo), as_t(step), as_t(mu), as_t(sig)

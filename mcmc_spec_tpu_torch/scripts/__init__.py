@@ -61,4 +61,12 @@ a ``torch.profiler`` run, shared by the others), ``ablate_matrix`` and
 ``trace_fleet_step`` (K4 v2's sections, S14 ``fleet_sections``),
 ``try_fleet_block``, ``try_block_size``, ``try_two_blocks`` (two walkers a warp,
 S15 ``posterior_pair``), ``attr_segmented`` and ``bench_large_nd``.
+
+The host receipts, counterparts of the JAX scripts of the same names:
+``acl_gate_cost`` (the autocorrelation gate's two cadences) and
+``fleet_memory_receipt`` (the streamed fleet writer's peak host memory, and
+which writer ran), host numpy with no card; ``compile_cache_receipt`` (the CLI
+fit cold and warm under one ``MCMC_SPEC_COMPILE_CACHE`` directory) and
+``compile_cache_micro`` (K1 in three fresh processes: cold build, hit, cache
+off), on the card.
 """

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import math
+import os
 import subprocess
 import time
 
@@ -28,6 +29,23 @@ def describe(dev: torch.device) -> str:
     if dev.type == "cuda":
         return nvidia_smi("name,power.limit")
     return "cpu: host-clock times of the plain versions, not device times"
+
+
+def describe_host() -> str:
+    """The host's CPU (vendor and model name, as ``/proc/cpuinfo`` gives them) and core
+    counts, for the receipts that time the host alone."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                key, _, value = ln.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    vendor, model = info.get("vendor_id", "unknown vendor"), info.get("model name", "unknown")
+    cpu = f"{vendor}, model name {model}"
+    return (f"host: {cpu}, {os.cpu_count()} cores ({len(os.sched_getaffinity(0))} usable); "
+            "no card takes part")
 
 
 def timer(dev: torch.device):

@@ -4,7 +4,9 @@
 Each dial is resolved ONCE, when a target is packed (``inference.target``),
 and stamped on the ``PackedTarget``; the kernels never read the environment.
 ``MCMC_SPEC_FUSED_EVAL`` is read per evaluation, single-target and fleet, as
-in JAX.  The env names and defaults are the JAX package's.
+in JAX.  ``MCMC_SPEC_COMPILE_CACHE`` chooses the kernels' build directory
+(``enable_persistent_compile_cache``).  The env names and defaults are the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -92,3 +94,24 @@ def fused_eval_off() -> bool:
     """True when fusion is switched off: a fusable single target then takes the
     spectrum kernel (K3) and the composition instead of the fused posterior (K1)."""
     return _fused_eval_mode() == "off"
+
+
+def enable_persistent_compile_cache(path: str = None) -> "str | None":
+    """Keep the kernels' build across processes (``MCMC_SPEC_COMPILE_CACHE``).
+
+    On CUDA the only compile is nvcc's, into the library that
+    ``runtime.cuda_build`` keys on the sources' hash and reuses where it
+    exists, so the persistent cache is that library's directory.  Values, as
+    in JAX: unset, ``1`` or ``auto``: ``mcmc_spec_tpu_torch/build/``
+    (``cuda_build.BUILD_DIR``); ``0``, ``off`` or empty: no cache, a temporary
+    directory removed when the process exits, so every process runs nvcc;
+    anything else: that directory, created if needed.  ``path`` stands in
+    for the variable's directory.  Returns the directory, or None when the
+    cache is off.  Idempotent; called by the CLI before the first dispatch.
+    Raises once the library was loaded from another directory.
+    """
+    from mcmc_spec_tpu_torch.runtime import cuda_build
+
+    setting = cuda_build.cache_setting(path)
+    chosen = cuda_build.use_build_dir(setting)
+    return None if setting is None else str(chosen)
