@@ -9,9 +9,9 @@ Phases, each of which exits non-zero on failure:
 
 1. device: a CUDA card is required; prints its name and power limit;
 2. build: compiles the kernels of ``mcmc_spec_tpu_torch/csrc`` with nvcc;
-3. kernels vs plain: the walkers per block and ptxas lines (no barrier) of
-   the one-warp-per-walker kernels K1, K3, K4 and K5, and K6's to K9's (no
-   spill); the
+3. kernels vs plain: the walkers per block and ptxas lines of the
+   one-warp-per-walker kernels K1, K5 (no spill), K3 and K4 (no barrier),
+   and K6's to K9's (no spill); the
    fused-posterior (K1) and spectrum-chi^2 (K3) kernels against their plain
    PyTorch versions on the card at both dial sets: 16,384 + 5 walkers on the
    bench target, three small targets, and nd = 1,791 and 4,096 with a ragged
@@ -185,7 +185,7 @@ Phases, each of which exits non-zero on failure:
    200 and ``nsteps`` from 10,000 to 2,000 (finite samples, K3's launches
    exact, K1's counted);
 16. the attribution tools' kernels and instruments (``mcmc_spec_tpu_torch/scripts``):
-   S13 ``posterior_ablate`` (K1 v2 with its four sections gated at compile time:
+   S13 ``posterior_ablate`` (K1 v3 with its four sections gated at compile time:
    the 16 masks of the 2^4 matrix and ``empty``, the launch floor) and S15
    ``posterior_pair`` (K1 v2, two walkers a warp) on 1,024 + 5 bench walkers, an
    odd count, S14 ``fleet_sections`` (K4 v2's modes; ``no_matmul`` on weights
@@ -482,26 +482,42 @@ def check_k1(name, tgt, P, max_outside):
 def warp_kernels_report(tgt):
     """K1, K3, K4 and K5 run one warp per walker: print each kernel's walkers per block at
     the bench shape (K4's and K5's fleet is padded to it) and at LARGE_ND, and its ptxas
-    line, which must show no barrier; then K6's to K9's ptxas lines (each instantiation,
-    and K8's and K9's segment sum), which must show no spill."""
+    line, which must show no barrier for K3 and K4 (v2, each warp alone) and no spill for
+    K1 and K5 (v3, whose blocks stage the tables behind barriers, with each block's tile
+    buffers); then K6's to K9's ptxas lines (each instantiation, and K8's and K9's segment
+    sum), which must show no spill."""
     from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
     from mcmc_spec_tpu_torch.ops import spec_segmented as seg
     from mcmc_spec_tpu_torch.runtime import compare_builds, cuda_build
 
     lines = compare_builds.ptxas_lines(cuda_build.library_path().with_suffix(".log").read_text())
+    log = cuda_build.library_path().with_suffix(".log").read_text().splitlines()
     nT, nG, nd = tgt.D.shape
     for name, kernel, weight_rows in (("K1", "log_posterior_fused_kernel", 1 + tgt.nspec),
                                       ("K3", "spectrum_chi2_kernel", 0),
                                       ("K4", "spectrum_chi2_fleet_kernel", 0),
                                       ("K5", "log_posterior_fleet_fused_kernel", 1 + tgt.nspec)):
-        line = next(v for k, v in lines.items() if kernel in k)
-        wpb = {n: ck.walkers_per_block(n, nT * nG, weight_rows) for n in (nd, seg.LARGE_ND)}
-        print(f"[{name} one warp per walker] walkers per block: "
-              + ", ".join(f"{w} at nd={n} ({w * ck.warp_smem_bytes(n, nT * nG, weight_rows)} "
-                          "bytes of shared memory)" for n, w in wpb.items())
-              + f"; ptxas: {line}")
-        require("used 0 barriers" in line, f"{name}: ptxas reports a barrier: {line}")
-    log = cuda_build.library_path().with_suffix(".log").read_text().splitlines()
+        key = next(k for k in lines if kernel in k)
+        line = lines[key]
+        if weight_rows:  # K1, K5 v3
+            blocks = {n: ck.staged_block(n, nT * nG, weight_rows) for n in (nd, seg.LARGE_ND)}
+            sizes = {n: (w, ck.staged_smem_bytes(n, nT * nG, weight_rows, w, st))
+                     for n, (w, st) in blocks.items()}
+            detail = ", ".join(f"{w} at nd={n} ({b} bytes of shared memory, tiles of "
+                               f"{blocks[n][1]} floats)" for n, (w, b) in sizes.items())
+        else:
+            sizes = {n: (w, w * ck.warp_smem_bytes(n, nT * nG, weight_rows))
+                     for n, w in ((n, ck.walkers_per_block(n, nT * nG, weight_rows))
+                                  for n in (nd, seg.LARGE_ND))}
+            detail = ", ".join(f"{w} at nd={n} ({b} bytes of shared memory)"
+                               for n, (w, b) in sizes.items())
+        print(f"[{name} one warp per walker] walkers per block: {detail}; ptxas: {line}")
+        if weight_rows:
+            props = next(log[i + 1].strip() for i, ln in enumerate(log)
+                         if f"Function properties for {key}" in ln)
+            require(" 0 bytes spill stores" in props, f"{name} spills registers: {props}")
+        else:
+            require("used 0 barriers" in line, f"{name}: ptxas reports a barrier: {line}")
     for name, kernel in (("K6 shared D tile", "model_extinct_kernel"),
                          ("K7 histogram select", "median_kary_kernel"),
                          ("K8 walker chunks", "renorm_partials_kernel"),
@@ -1368,9 +1384,10 @@ def largend_crossover(dev, targets):
         ops = lane_operands(t, P)
         NO = ops[0].shape[1]
         wpb = {}
-        for name, weight_rows in (("K1", 1 + t.nspec), ("K3", 0)):
+        for name, block in (("K1", lambda: ck.staged_block(nd, NO, 1 + t.nspec)[0]),
+                            ("K3", lambda: ck.walkers_per_block(nd, NO, 0))):
             try:
-                wpb[name] = ck.walkers_per_block(nd, NO, weight_rows)
+                wpb[name] = block()
             except ValueError:  # not one walker's row fits a block
                 wpb[name] = None
         row = {

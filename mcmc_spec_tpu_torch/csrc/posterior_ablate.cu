@@ -1,4 +1,4 @@
-// S13: the fused posterior K1 v2 with its sections switched off, every
+// S13: the fused posterior K1 v3 with its sections switched off, every
 // combination of the four gates: the 2^4 section matrix
 // (mcmc_spec_tpu_torch/scripts/ablate_matrix.py, ablate_matrix_traced.py).
 //
@@ -7,7 +7,8 @@
 // (mcmc_spec_tpu/ops/pallas_kernels.py:801), for each mask of (do_phot,
 // do_priors, do_spectrum, do_w).  The kernel is K1's
 // (log_posterior_fused.cu) over posterior_warp<kPhot, kPriors, kSpectrum, kW>
-// (posterior_warp.cuh), whose gates default to the production body: one
+// (posterior_warp.cuh) with K1's staged spectrum body, whose gates default to
+// the production body: one
 // instantiation per mask, variant id = 8 P + 4 R + 2 S + W, so id 15 is K1's
 // own code and its output is K1's bit for bit; id 0 is the JAX script's
 // `empty` variant (every section stubbed).  Id 16, `empty` here, is the launch
@@ -18,40 +19,46 @@
 // posterior: nspec = 2, a fitted parallax with the distance bounds, no radius
 // prior, a non-zero spectrum weight; the launch refuses any other target.
 // The arguments are K1's (ops/cuda_kernels.posterior_launch_args, then the
-// radius-prior sigma and the walkers per block), then the variant id.
+// radius-prior sigma, the counter, the stage and the walkers per block), then
+// the variant id.
 #include "posterior_warp.cuh"
 #include "spectrum_warp.cuh"
 
 namespace mcmc_spec {
 
 template <bool kPhot, bool kPriors, bool kSpectrum, bool kW>
-__global__ void __launch_bounds__(kWalkersMax * 32)
+__global__ void __launch_bounds__(kStagedWalkersMax * 32, 1)
     posterior_ablate_kernel(const float* __restrict__ scal, const float* __restrict__ p,
                             const PosteriorTables t, const PosteriorConfig a, float spec_scale,
-                            float* __restrict__ out, int B) {
+                            float* __restrict__ out, int B, int stage,
+                            unsigned long long* rows) {
   extern __shared__ __align__(16) float dyn[];
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= B) return;  // the ragged last block: whole warps leave
+  const int warp = threadIdx.x >> 5, wpb = blockDim.x >> 5;
+  const int b = blockIdx.x * wpb + warp;
+  const StageArea sa = stage_area(dyn, a.nd, a.NO, 1 + a.nspec, wpb, stage, rows);
   // scal: tmin, tmax, med_data
   const TargetScalars ts{scal[0], scal[1], scal[2], spec_scale, whole_row_stat(a.nd)};
-  const float v = posterior_warp<kPhot, kPriors, kSpectrum, kW>(
-      a, t, ts, p + (size_t)b * a.ndim,
-      dyn + (size_t)warp * warp_smem_floats(a.nd, a.NO, 1 + a.nspec));
-  if ((threadIdx.x & 31) == 0) out[b] = v;
+  // the ragged last block: a warp past the end evaluates the last walker again, for
+  // the block's copies and barriers, and writes nothing
+  const float v = posterior_warp<kPhot, kPriors, kSpectrum, kW, true>(
+      a, t, ts, p + (size_t)min(b, B - 1) * a.ndim,
+      dyn + (size_t)warp * warp_smem_floats(a.nd, a.NO, 1 + a.nspec), &sa, b < B);
+  if (b < B && (threadIdx.x & 31) == 0) out[b] = v;
 }
 
 // The launch floor: K1's launch with no body.
-__global__ void __launch_bounds__(kWalkersMax * 32)
+__global__ void __launch_bounds__(kStagedWalkersMax * 32, 1)
     posterior_empty_kernel(const float* __restrict__ scal, const float* __restrict__ p,
                            const PosteriorTables t, const PosteriorConfig a, float spec_scale,
-                           float* __restrict__ out, int B) {
+                           float* __restrict__ out, int B, int stage,
+                           unsigned long long* rows) {
   const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (b < B && (threadIdx.x & 31) == 0) out[b] = p[(size_t)b * a.ndim];
 }
 
 using AblateKernel = void (*)(const float*, const float*, const PosteriorTables,
-                              const PosteriorConfig, float, float*, int);
+                              const PosteriorConfig, float, float*, int, int,
+                              unsigned long long*);
 
 template <int kMask>
 constexpr AblateKernel ablate_variant() {
@@ -68,8 +75,8 @@ extern "C" int posterior_ablate_launch(
     const void* av_vals, const void* Fc, const void* Fp, const void* cobs, const void* pobs,
     const void* prior, void* out, int B, int ndim, int NO, int nd, int nm, int nav, int nc,
     int npf, int nspec, int fit_plx, int dist_fit, int rad_prior, int iters, int recip,
-    float spectrum_weight, float spec_scale, float rad_sigma, int wpb, int variant,
-    void* stream) {
+    float spectrum_weight, float spec_scale, float rad_sigma, void* rows, int stage, int wpb,
+    int variant, void* stream) {
   using namespace mcmc_spec;
   // the masks (phot, priors, spectrum, W) by id, then the launch floor
   static const AblateKernel kVariants[] = {
@@ -82,7 +89,8 @@ extern "C" int posterior_ablate_launch(
   constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
   if (variant < 0 || variant >= kNumVariants || nspec != 2 || !fit_plx || !dist_fit ||
       rad_prior || spectrum_weight == 0.0f || nc > kMaxBands || npf > kMaxBands ||
-      ndim > kMaxDim || wpb < 1 || wpb > kWalkersMax)
+      ndim > kMaxDim || wpb < 1 || wpb > kStagedWalkersMax || stage % 32 != 0 ||
+      stage < 32 * (NO + 1) || stage < 160)
     return (int)cudaErrorInvalidValue;
   const PosteriorTables t{(const float*)D,        (const float*)kd,        (const float*)data,
                           (const float*)inv_err,  (const float*)VpinvT,    (const float*)VT,
@@ -94,13 +102,14 @@ extern "C" int posterior_ablate_launch(
                           npf,     nspec,    fit_plx,   dist_fit, rad_prior, iters,
                           recip,   spectrum_weight, rad_sigma};
   const AblateKernel kernel = kVariants[variant];
-  const size_t smem = (size_t)wpb * warp_smem_floats(nd, NO, 1 + nspec) * sizeof(float);
+  const size_t smem = (size_t)staged_smem_floats(nd, NO, 1 + nspec, wpb, stage) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<(B + wpb - 1) / wpb, 32 * wpb, smem, (cudaStream_t)stream>>>(
-      (const float*)scal, (const float*)p, t, a, spec_scale, (float*)out, B);
+      (const float*)scal, (const float*)p, t, a, spec_scale, (float*)out, B, stage,
+      (unsigned long long*)rows);
   return (int)cudaGetLastError();
 }

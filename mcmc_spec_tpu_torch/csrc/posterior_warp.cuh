@@ -4,12 +4,14 @@
 //
 // Replaces the body of mcmc_spec_tpu/ops/pallas_kernels.py:_posterior_kernel
 // and _fleet_posterior_kernel (with _tent_w) for those two kernels.  A warp
-// runs its walker alone, with no block barrier: the scalar part (unpack,
+// runs its walker's scalar part alone, with no block barrier (unpack,
 // component scales, MIST logg(T), tent weights -> Wcomb, contrast and
-// photometry magnitudes, priors, bounds), then the spectrum body of
-// spectrum_warp.cuh.  The caller passes the target's tables and scalars:
-// K1 the whole-row median and the mean chi^2, K5 its target's median ranks
-// over the true points and sum * 1/n_true (SpecStat).
+// photometry magnitudes, priors, bounds), then the spectrum body: v3
+// (spectrum_stage.cuh, K1 and K5), whose tables the block's warps read
+// together, or v2 (spectrum_warp.cuh, a warp alone: the experiment S15).  The
+// caller passes the target's tables and scalars: K1 the whole-row median and
+// the mean chi^2, K5 its target's median ranks over the true points and sum *
+// 1/n_true (SpecStat).
 //
 // Each band's contrast magnitudes stay in the lane's registers, and the chi^2
 // terms and the prior in every lane's registers: no shared memory, no barrier.
@@ -19,20 +21,25 @@
 // replaces its section by the stub of scripts/ablate_fused_sections.py:
 // variant_kernel (zero band chi^2, no priors and no bounds, sum(Wcomb) for the
 // spectrum chi^2, Wk = teff * 1e-4 for every grid point).  Their defaults, every
-// section on, are the production body of K1 and K5.
+// section on, are the production body of K1 and K5 (with kStaged) and of S15.
 #pragma once
 
 #include "posterior_body.cuh"
+#include "spectrum_stage.cuh"
 #include "spectrum_warp.cuh"
 
 namespace mcmc_spec {
 
 // The log-posterior of the walker pw[ndim]; every lane of the calling warp
 // gets it.  dyn: the warp's slice of dynamic shared memory,
-// warp_smem_floats(nd, NO, 1 + nspec) floats.
-template <bool kPhot = true, bool kPriors = true, bool kSpectrum = true, bool kW = true>
+// warp_smem_floats(nd, NO, 1 + nspec) floats.  kStaged: the spectrum body is v3
+// (spectrum_stage.cuh), which every warp of the block calls with the block's
+// staging area `sa`; `counted` false for a warp that repeats the last walker.
+template <bool kPhot = true, bool kPriors = true, bool kSpectrum = true, bool kW = true,
+          bool kStaged = false>
 __device__ inline float posterior_warp(const PosteriorConfig& a, const PosteriorTables& t,
-                                       const TargetScalars& ts, const float* pw, float* dyn) {
+                                       const TargetScalars& ts, const float* pw, float* dyn,
+                                       const StageArea* sa = nullptr, bool counted = true) {
   float* row = dyn;                // [nd] model row
   float* wc = dyn + round4(a.nd);  // [NO] Wcomb
   float* swk = wc + a.NO;          // [nspec, NO] scaled per-component weights
@@ -166,9 +173,15 @@ __device__ inline float posterior_warp(const PosteriorConfig& a, const Posterior
 
   float chi_spec = 0.0f;
   if constexpr (kSpectrum) {
-    if (a.spectrum_weight != 0.0f)
-      chi_spec = spectrum_warp(wc, av, t.D, a.NO, a.nd, t.kd, t.data, t.inv_err, t.VpinvT, t.VT,
-                               ts.med_data, a.iters, true, a.recip, ts.stat, row, lo, lw);
+    if (a.spectrum_weight != 0.0f) {  // uniform across the launch
+      if constexpr (kStaged)
+        chi_spec = spectrum_staged(*sa, counted, wc, av, t.D, a.NO, a.nd, t.kd, t.data,
+                                   t.inv_err, t.VpinvT, t.VT, ts.med_data, a.iters, a.recip,
+                                   ts.stat, row, lo, lw);
+      else
+        chi_spec = spectrum_warp(wc, av, t.D, a.NO, a.nd, t.kd, t.data, t.inv_err, t.VpinvT,
+                                 t.VT, ts.med_data, a.iters, true, a.recip, ts.stat, row, lo, lw);
+    }
   } else {  // the stub: the blend weights' sum
     float w = 0.0f;
     for (int o = lane; o < a.NO; o += 32) w += wc[o];

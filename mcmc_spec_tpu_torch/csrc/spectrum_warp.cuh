@@ -1,8 +1,9 @@
-// The spectrum-statistics body (K2) of the fused posterior K1
-// (log_posterior_fused.cu), the spectrum-chi^2 kernel K3 (spectrum_chi2.cu),
-// the fleet spectrum-chi^2 kernel K4 (spectrum_chi2_fleet.cu) and the fused
-// fleet posterior K5 (log_posterior_fleet_fused.cu), redesigned for Hopper:
-// one warp per walker.
+// The spectrum-statistics body (K2) v2 of the spectrum-chi^2 kernel K3
+// (spectrum_chi2.cu), the fleet spectrum-chi^2 kernel K4 (spectrum_chi2_fleet.cu)
+// and the experiments S14 and S15, redesigned for Hopper: one warp per walker.
+// The fused posteriors K1 and K5 run v3 (spectrum_stage.cuh), which keeps this
+// body's arithmetic and reads its operands from tiles the block stages, and
+// takes step 1 and row_median_warp from here.
 //
 // Replaces mcmc_spec_tpu/ops/pallas_kernels.py:_spectrum_block (with
 // _row_order_stat_bits/_row_median_nonneg and _div) for K1, K3, K4 and K5;

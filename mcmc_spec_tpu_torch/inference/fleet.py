@@ -79,10 +79,12 @@ def stack_targets(targets: Sequence[PackedTarget]) -> PackedTarget:
 
 def _require_row_fits(fleet: PackedTarget, fused: bool) -> None:
     """Raise unless a fleet kernel's row fits a block's shared memory: both run one
-    warp per walker, which holds its row and its compact list, and for K5 also its 1 +
-    nspec rows of weights (``cuda_kernels.warp_max_nd``)."""
+    warp per walker, which holds its row and its compact list (K4:
+    ``cuda_kernels.warp_max_nd``), and for K5 also its 1 + nspec rows of weights beside
+    the block's tile buffers (``cuda_kernels.staged_max_nd``)."""
     nT, nG, nd = fleet.D.shape[-3:]
-    max_nd = cuda_kernels.warp_max_nd(nT * nG, 1 + fleet.nspec if fused else 0)
+    max_nd = (cuda_kernels.staged_max_nd(nT * nG, 1 + fleet.nspec) if fused
+              else cuda_kernels.warp_max_nd(nT * nG, 0))
     if nd > max_nd:
         kernel = "log_posterior_fleet_fused (K5)" if fused else "spectrum_chi2_fleet (K4)"
         raise ValueError(

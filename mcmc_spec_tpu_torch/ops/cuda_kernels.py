@@ -5,7 +5,8 @@ Four kernels, hand-written in CUDA C++ for ``sm_90a`` (``csrc/``), built by
 
 * ``log_posterior_fused`` (K1, ``csrc/log_posterior_fused.cu``) evaluates the
   whole batched log-posterior of one unpadded target, one warp per walker
-  and up to 8 walkers a block: the stage-2 sampler's evaluation.
+  and up to 16 walkers a block, which read the target's tables together: the
+  stage-2 sampler's evaluation.
 * ``spectrum_chi2`` (K3, ``csrc/spectrum_chi2.cu``) evaluates the spectrum
   block alone, ``renorm`` on or off, one warp per walker: the stage-1
   annealer's scoring.
@@ -14,21 +15,26 @@ Four kernels, hand-written in CUDA C++ for ``sm_90a`` (``csrc/``), built by
   one warp per walker of the flattened fleet: the fleet's default spectrum
   term.
 * ``log_posterior_fleet_fused`` (K5, ``csrc/log_posterior_fleet_fused.cu``)
-  is K1 for a stacked, padded fleet, one warp per walker of the flattened
-  fleet: the fleet's opt-in fused evaluation.
+  is K1 for a stacked, padded fleet, one warp per walker and a row of blocks
+  a target: the fleet's opt-in fused evaluation.
 
 All four compute the spectrum-statistics body K2: the ``Wcomb @ D`` model
 row with extinction, the sort-free radix median, the degree-2 continuum
 renorm and the chi^2.  All four run it one warp per walker, over a compact
-list of each walker's non-zero weights (``csrc/spectrum_warp.cuh``); the
+list of each walker's non-zero weights: K3 and K4 each warp alone
+(``csrc/spectrum_warp.cuh``, v2), K1 and K5 with the block's warps staging
+the target's tables and their union of grid rows through shared-memory tiles
+(``csrc/spectrum_stage.cuh``, v3, the same arithmetic in the same order); the
 one-block-per-walker body (``csrc/spectrum_block.cuh``) stays in the
 experiment kernels of ``mcmc_spec_tpu_torch.scripts``.  K1 and K3 take the
 median of the whole row and the mean chi^2; K4 and K5 take per-target median
 ranks and ``sum * 1/n_true``, so padded points are inert.  K1 and K5 share
 the warp-per-walker posterior body (``csrc/posterior_warp.cuh``), the
 experiment S8 the block-per-walker W path (``csrc/posterior_body.cuh``).
-``walkers_per_block`` chooses how many walkers a block of K1, K3, K4 or K5
-holds.
+``walkers_per_block`` chooses how many walkers a block of K3 or K4 holds,
+``staged_block`` those of K1 and K5 and their tile buffers; while spans record
+(``utils.profiling``), K1 and K5 count the D rows their blocks staged and the D
+rows their walkers read from them (``profiling.rows_counter``).
 
 Beside each kernel is its plain PyTorch version (``*_reference``): f32, the
 same pack-time dials, the arithmetic of the Pallas kernel, on the same
@@ -83,9 +89,14 @@ LAUNCHES = {"log_posterior_fused": 0, "spectrum_chi2": 0, "spectrum_chi2_fleet":
 # for the kernels' static shared memory: the kernels hold their walkers' model
 # rows of nd floats and blend weights in it
 ROW_SMEM_BYTES = 232448 - 1024
-# walkers (one warp each) a block of K1, K3, K4 or K5 holds at most: kWalkersMax in
+# walkers (one warp each) a block of K3 or K4 holds at most: kWalkersMax in
 # csrc/spectrum_warp.cuh
 WALKERS_MAX = 8
+# walkers a block of K1 or K5 (v3, csrc/spectrum_stage.cuh) holds at most: kStagedWalkersMax
+WALKERS_MAX_STAGED = 16
+# an H100 SM's shared memory, and what each resident block reserves of it
+SM_SMEM_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
 
 
 def reset_launches() -> None:
@@ -94,7 +105,8 @@ def reset_launches() -> None:
 
 
 def warp_smem_bytes(nd: int, NO: int, weight_rows: int) -> int:
-    """Dynamic shared memory one walker of K1, K3, K4 or K5 holds, in bytes.
+    """Dynamic shared memory one walker of K1, K3, K4 or K5 holds, in bytes (K1's and
+    K5's blocks add their tile buffers, ``staged_smem_bytes``).
 
     The model row, ``weight_rows`` rows of NO blend weights (K1 and K5: ``1 +
     nspec``, Wcomb and the scaled components; K3 and K4: 0) and the compact list of
@@ -113,8 +125,8 @@ def warp_max_nd(NO: int, weight_rows: int) -> int:
 
 
 def walkers_per_block(nd: int, NO: int, weight_rows: int) -> int:
-    """The walkers (warps) a block of K1, K3, K4 or K5 holds: the largest count up to
-    ``WALKERS_MAX`` whose shared memory fits ``ROW_SMEM_BYTES``.
+    """The walkers (warps) a block of K3 or K4 (and S15, K1's v2 body) holds: the largest
+    count up to ``WALKERS_MAX`` whose shared memory fits ``ROW_SMEM_BYTES``.
 
     ``weight_rows`` as in ``warp_smem_bytes``.  Raises ``ValueError`` where
     one walker's row does not fit.
@@ -128,8 +140,72 @@ def walkers_per_block(nd: int, NO: int, weight_rows: int) -> int:
     return wpb
 
 
+def staged_max_nd(NO: int, weight_rows: int) -> int:
+    """The widest row a block of K1 or K5 (v3) holds: the largest nd at which one walker's
+    ``warp_smem_bytes``, the union and two tiles of 32 (NO + 1) floats fit
+    ``ROW_SMEM_BYTES``."""
+    r4 = lambda n: (n + 3) // 4 * 4
+    rest = r4((NO + 31) // 32) + r4(NO) + 4 + 2 * 32 * (NO + 1) + r4((weight_rows + 2) * NO)
+    return (ROW_SMEM_BYTES // 4 - rest) // 4 * 4
+
+
+def staged_smem_bytes(nd: int, NO: int, weight_rows: int, wpb: int, stage: int) -> int:
+    """Dynamic shared memory of a block of K1 or K5 (v3), in bytes: ``wpb`` walkers'
+    ``warp_smem_bytes``, the block's union of grid rows (the NO-bit mask, the slot map
+    and the list lengths' sum, each part padded to 16 bytes) and two tile buffers of
+    ``stage`` floats: ``staged_smem_floats`` in ``csrc/spectrum_stage.cuh``."""
+    r4 = lambda n: (n + 3) // 4 * 4
+    union = r4((NO + 31) // 32) + r4(NO) + 4
+    return wpb * warp_smem_bytes(nd, NO, weight_rows) + 4 * (union + 2 * stage)
+
+
+def stage_floats(nd: int, NO: int, weight_rows: int, wpb: int) -> tuple:
+    """(blocks an SM holds, ``stage``) of K1 or K5 (v3) at ``wpb`` walkers a block: the
+    most blocks whose tile buffers still take a build tile of 32 points of every grid
+    row and kd (``stage`` >= 32 (NO + 1) floats), and the largest ``stage``, a multiple
+    of 32 floats, that so many blocks leave, at most one tile of the whole row of every
+    grid row.  (0, 0) where not one block fits."""
+    floor = 32 * (NO + 1)
+    cap = (NO + 1) * ((nd + 31) // 32 * 32)
+    base = staged_smem_bytes(nd, NO, weight_rows, wpb, 0)
+    per_sm = SM_SMEM_BYTES // (base + 8 * floor + BLOCK_RESERVED_BYTES)
+    room = min(SM_SMEM_BYTES // max(per_sm, 1) - BLOCK_RESERVED_BYTES, ROW_SMEM_BYTES) - base
+    if per_sm < 1 or room < 8 * floor:
+        return 0, 0
+    return per_sm, min(room // 8 // 32 * 32, cap)
+
+
+@functools.lru_cache(maxsize=64)  # every launch of K1 and K5 asks
+def staged_block(nd: int, NO: int, weight_rows: int, requested=None) -> tuple:
+    """(walkers a block, ``stage``) of K1 or K5 (v3), ``stage`` from ``stage_floats``.
+
+    ``requested`` None: the largest block, up to ``WALKERS_MAX_STAGED`` walkers, whose
+    rows leave room for the tile buffers: the more walkers a block holds, the more of
+    them share each staged row (on an H100 at the koi2298 shapes, 16 walkers, one block
+    an SM, ran K1 the fastest of 4 to 16 and K5 within 1 % of it).  Else ``requested``,
+    which must lie in 1 .. ``WALKERS_MAX_STAGED`` and fit (``ValueError`` otherwise).
+    ``weight_rows`` as in ``warp_smem_bytes``."""
+    if requested is not None:
+        if int(requested) != requested or not 1 <= requested <= WALKERS_MAX_STAGED \
+                or stage_floats(nd, NO, weight_rows, int(requested))[0] < 1:
+            raise ValueError(
+                f"{requested} walkers a block: a block of K1 or K5 holds 1 to "
+                f"{WALKERS_MAX_STAGED} walkers of {warp_smem_bytes(nd, NO, weight_rows)} bytes "
+                f"each (nd={nd}, {weight_rows + 2} rows of {NO} weights) and two tiles of "
+                f"{32 * (NO + 1)} floats in {ROW_SMEM_BYTES} bytes of shared memory")
+        return int(requested), stage_floats(nd, NO, weight_rows, int(requested))[1]
+    for w in range(WALKERS_MAX_STAGED, 0, -1):
+        per_sm, stage = stage_floats(nd, NO, weight_rows, w)
+        if per_sm:
+            return w, stage
+    raise ValueError(
+        f"a walker's row of nd={nd} points, {weight_rows + 2} rows of {NO} weights and "
+        f"two tiles of {32 * (NO + 1)} floats take more than the {ROW_SMEM_BYTES} bytes "
+        "of shared memory a block has")
+
+
 def _block_walkers(nd: int, NO: int, weight_rows: int, requested=None) -> int:
-    """The walkers a block of K1, K3, K4 or K5 holds: ``walkers_per_block`` where
+    """The walkers a block of K3, K4 or S15 holds: ``walkers_per_block`` where
     ``requested`` is None, else ``requested``, which must lie in 1 .. ``WALKERS_MAX``
     and fit ``ROW_SMEM_BYTES`` (``ValueError`` otherwise)."""
     if requested is None:
@@ -370,10 +446,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # K1, K3, K4 and K5 take their walkers per block last, before the stream
-    "log_posterior_fused_launch": [_P] * 20 + [_I] * 14 + [_F] * 3 + [_I] + [_P],
+    "log_posterior_fused_launch": [_P] * 20 + [_I] * 14 + [_F] * 3 + [_P] + [_I] * 2 + [_P],
     "spectrum_chi2_launch": [_P] * 10 + [_I] * 7 + [_P],
     "spectrum_chi2_fleet_launch": [_P] * 11 + [_I] * 7 + [_P],
-    "log_posterior_fleet_fused_launch": [_P] * 21 + [_I] * 15 + [_F] * 2 + [_I] + [_P],
+    "log_posterior_fleet_fused_launch": [_P] * 21 + [_I] * 15 + [_F] * 2 + [_P] + [_I] * 2
+    + [_P],
     # the segmented large-nd lane (ops.spec_segmented)
     "model_extinct_launch": [_P] * 5 + [_I] * 4 + [_P],
     "median_kary_launch": [_P] * 3 + [_I] * 4 + [_P],
@@ -395,7 +472,7 @@ _SIGNATURES = {
     "spectrum_overlap_launch": [_P] * 10 + [_I] * 6 + [_P],
     # the attribution tools (mcmc_spec_tpu_torch.scripts): K1's arguments and a variant
     # (S13), K1's (S15), K4's and a mode (S14)
-    "posterior_ablate_launch": [_P] * 20 + [_I] * 14 + [_F] * 3 + [_I] * 2 + [_P],
+    "posterior_ablate_launch": [_P] * 20 + [_I] * 14 + [_F] * 3 + [_P] + [_I] * 3 + [_P],
     "posterior_pair_launch": [_P] * 20 + [_I] * 14 + [_F] * 3 + [_I] + [_P],
     "fleet_sections_launch": [_P] * 11 + [_I] * 8 + [_P],
     # the fleet grid order and the launch-cost probes (mcmc_spec_tpu_torch.scripts); a
@@ -441,6 +518,16 @@ def _launch(fn_name: str, counter: str, *args):
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _rows_ptr(device: torch.device) -> int:
+    """The staging counter of K1 and K5 while spans record (``profiling.rows_counter``:
+    the D rows a block staged and the D rows its walkers read from them), else 0, which
+    the kernels take as none."""
+    if not profiling.ON:
+        return 0
+    rows = profiling.rows_counter(device)
+    return 0 if rows is None else rows.data_ptr()
 
 
 def _require_cuda(t: torch.Tensor, name: str):
@@ -707,21 +794,19 @@ def log_posterior_fused(p, tgt, walkers_per_block=None):
     Requires ``tgt.n_contrast > 0`` and ``tgt.n_phot > 0`` and the target's
     tensors on ``p``'s device (the dispatch in ``inference.batched`` checks
     eligibility).  ``walkers_per_block``: the walkers a block holds (the block-size
-    sweep of ``scripts.try_block_size``); None takes the module's
-    ``walkers_per_block``, and a count that does not fit raises ``ValueError``.
+    sweep of ``scripts.try_block_size``); None takes ``staged_block``'s choice, and a
+    count that does not fit raises ``ValueError``.
     """
     resolve_dials(tgt)
     nT, nG, nd = tgt.D.shape
-    if walkers_per_block is not None:
-        _block_walkers(nd, nT * nG, 1 + tgt.nspec, walkers_per_block)
+    wpb, stage = staged_block(nd, nT * nG, 1 + tgt.nspec, walkers_per_block)
     if p.device.type == "cpu":
         return log_posterior_fused_reference(p, tgt)
     _require_cuda(p, "log_posterior_fused")
-    wpb = _block_walkers(nd, nT * nG, 1 + tgt.nspec, walkers_per_block)
     out, args = posterior_launch_args(p, tgt, "log_posterior_fused")
     if args:
         _launch("log_posterior_fused_launch", "log_posterior_fused", *args,
-                float(tgt.rad_sigma_frac), wpb, _stream(p.device))
+                float(tgt.rad_sigma_frac), _rows_ptr(p.device), stage, wpb, _stream(p.device))
     return out
 
 
@@ -898,6 +983,9 @@ def log_posterior_fleet_fused(params, fleet):
     _require_cuda(params, "log_posterior_fleet_fused")
     out, args = fleet_posterior_launch_args(params, fleet)
     if args:
+        rows = _rows_ptr(params.device)
+        if rows:
+            args = args[:-3] + (rows,) + args[-2:]
         _launch("log_posterior_fleet_fused_launch", "log_posterior_fleet_fused", *args,
                 _stream(params.device))
     return out
@@ -908,7 +996,8 @@ def fleet_posterior_launch_args(params, fleet):
     fleet's tables: ``out`` the [ntgt, nw] result, ``args`` the launch arguments
     up to the walkers per block (the stream follows), None when there are no
     walkers.  The kernel flattens the walkers to [ntgt * nw] and gives a block
-    ``walkers_per_block`` of them, so a block may span two targets."""
+    ``staged_block`` of them, so a block may span two targets.  The staging counter's
+    pointer is 0 (none) here; the wrapper passes the session's while spans record."""
     iters, _, recip = resolve_dials(fleet)
     dev = params.device
     t = fleet_kernel_tables(fleet)
@@ -931,7 +1020,7 @@ def fleet_posterior_launch_args(params, fleet):
               "pobs": (4, npf), "prior": (2, ndim)}
     for name, shape in tables.items():
         _check(t[name], name, dev, (ntgt,) + shape)
-    wpb = walkers_per_block(nd, NO, 1 + fleet.nspec)
+    wpb, stage = staged_block(nd, NO, 1 + fleet.nspec)
     out = torch.empty((ntgt, nw), dtype=_F32, device=dev)
     if ntgt * nw == 0:
         return out, None
@@ -939,7 +1028,7 @@ def fleet_posterior_launch_args(params, fleet):
                  *(t[name].data_ptr() for name in tables), out.data_ptr(),
                  ntgt, nw, ndim, NO, nd, nm, nav, nc, npf, fleet.nspec, int(fleet.fit_plx),
                  int(fleet.dist_fit), int(fleet.rad_prior), iters, recip,
-                 float(fleet.spectrum_weight), float(fleet.rad_sigma_frac), wpb)
+                 float(fleet.spectrum_weight), float(fleet.rad_sigma_frac), 0, stage, wpb)
 
 
 # ---------------------------------------------------------------------------
@@ -998,7 +1087,7 @@ def posterior_ablate_reference(p, tgt, variant):
 
 
 def posterior_ablate(p, tgt, variant):
-    """S13: K1 v2 over walkers ``p`` [B, ndim] with the sections of the mask ``variant``
+    """S13: K1 v3 over walkers ``p`` [B, ndim] with the sections of the mask ``variant``
     ("PRSW", ``ABLATE_MASKS``) stubbed, or the launch floor ``empty`` ([B] f32);
     "1111" is ``log_posterior_fused`` bit for bit."""
     vid = _ablate_id(variant)
@@ -1008,18 +1097,19 @@ def posterior_ablate(p, tgt, variant):
         return posterior_ablate_reference(p, tgt, variant)
     _require_cuda(p, "posterior_ablate")
     nT, nG, nd = tgt.D.shape
-    wpb = walkers_per_block(nd, nT * nG, 1 + tgt.nspec)
+    wpb, stage = staged_block(nd, nT * nG, 1 + tgt.nspec)
     out, args = posterior_launch_args(p, tgt, "posterior_ablate")
     if args:
         _launch("posterior_ablate_launch", "posterior_ablate", *args,
-                float(tgt.rad_sigma_frac), wpb, vid, _stream(p.device))
+                float(tgt.rad_sigma_frac), 0, stage, wpb, vid, _stream(p.device))
     return out
 
 
 def posterior_pair(p, tgt, walkers_per_block=None):
     """S15: K1 v2 with each warp evaluating two walkers in turn ([B] f32), K1's result
     bit for bit; its plain version is ``log_posterior_fused_reference``.  A block holds
-    ``walkers_per_block`` warps (K1's choice where None), so twice as many walkers."""
+    ``walkers_per_block`` warps (v2's choice, ``walkers_per_block``, where None), so
+    twice as many walkers."""
     resolve_dials(tgt)
     nT, nG, nd = tgt.D.shape
     if walkers_per_block is not None:

@@ -38,7 +38,7 @@ SOURCES = ("log_posterior_fused.cu", "spectrum_chi2.cu", "spectrum_chi2_fleet.cu
            "launch_probe.cu", "median_rounds.cu", "posterior_ablate.cu", "fleet_sections.cu",
            "posterior_pair.cu")
 HEADERS = ("block_common.cuh", "spectrum_block.cuh", "posterior_body.cuh",
-           "spectrum_warp.cuh", "posterior_warp.cuh")
+           "spectrum_warp.cuh", "posterior_warp.cuh", "spectrum_stage.cuh")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 # no --use_fast_math: the tolerances assume libm expf/logf and true division.
 # -Xptxas -v writes each kernel's registers and shared memory to the build log.

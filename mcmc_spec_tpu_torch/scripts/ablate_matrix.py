@@ -1,7 +1,7 @@
-"""The full 2^4 section matrix of the fused posterior K1 v2 on the card
+"""The full 2^4 section matrix of the fused posterior K1 v3 on the card
 (counterpart of ``scripts/ablate_matrix.py``).
 
-S13 ``posterior_ablate`` (``csrc/posterior_ablate.cu``) is K1 v2 with each
+S13 ``posterior_ablate`` (``csrc/posterior_ablate.cu``) is K1 v3 with each
 combination of four sections stubbed at compile time, as
 ``scripts/ablate_fused_sections.py:variant_kernel`` stubs them: the contrast and
 photometry magnitudes (P), the priors and bounds (R), the spectrum block (S) and
@@ -19,7 +19,10 @@ marginal cost in each context of the other three.  The W stub weights every grid
 point, so wherever the spectrum is on its row build reads all 56 D rows where
 production reads at most 8: a mask without W prices a dense build.  The script
 prints the production list's length beside it: the mean and largest count of
-non-zero blend weights a walker (the D rows K1 reads for it).
+non-zero blend weights a walker (the D rows K1 reads for it), and the mean count of
+distinct D rows a block of K1's walkers holds (U, the rows K1 v3 stages once a block)
+with the share of the walkers' D-row reads that are staged rows (the offline
+counterpart of the staging counter, ``rows_staged / rows_read``).
 
     python -m mcmc_spec_tpu_torch.scripts.ablate_matrix
 """
@@ -67,11 +70,23 @@ def check_masks(tgt, coords, ncheck=NCHECK) -> None:
           "differ from it", flush=True)
 
 
-def row_list(tgt, coords) -> tuple:
-    """(mean, largest) count of non-zero blend weights a walker: the length of the
-    compact list over which K1 builds its model row, the D rows it reads."""
-    n = (_forward_small(coords, tgt)[4] != 0).sum(dim=1).float()
-    return float(n.mean()), int(n.max())
+def row_list(tgt, coords, wpb=None) -> tuple:
+    """(mean, largest, union, share) on the walkers ``coords`` (any state): the mean and
+    largest count of non-zero blend weights a walker, the length of the compact list
+    over which K1 builds its model row, the D rows it reads; the mean count of distinct
+    grid rows a block of ``wpb`` walkers holds (U, the D rows K1 v3 stages once a block;
+    ``ck.staged_block``'s walkers a block where None), the walkers in K1's order with the
+    last block's missing warps repeating the last walker, as the kernel's do; and the sum
+    of U over the sum of the lists (``rows_staged / rows_read``)."""
+    nz = _forward_small(coords, tgt)[4] != 0
+    B, NO = nz.shape
+    n = nz.sum(dim=1).float()
+    if wpb is None:
+        wpb = ck.staged_block(tgt.D.shape[-1], NO, 1 + tgt.nspec)[0]
+    pad = -B % wpb
+    blocks = torch.cat([nz, nz[-1:].expand(pad, NO)]).view(-1, wpb, NO).any(dim=1).sum(dim=1)
+    return (float(n.mean()), int(n.max()), float(blocks.float().mean()),
+            float(blocks.sum()) / max(float(n.sum()), 1.0))
 
 
 def _subsets(mask: str):
@@ -139,11 +154,12 @@ def main(device="cuda", nwalk=NWALK, nd=ND, grid_step=1.0):
         print(json.dumps({"mask(PRSW)": mask, "ms": round(t[mask], 4),
                           "evals_per_s_M": round(nwalk / t[mask] * 1e-3, 2)}), flush=True)
     terms, marg = report(t)
-    mean, most = row_list(tgt, coords)
+    mean, most, union, share = row_list(tgt, coords)
     print(f"\nproduction row list: {mean:.4f} non-zero blend weights a walker on average, "
-          f"{most} at most, of {tgt.D.shape[0] * tgt.D.shape[1]} (the stubbed W weights all)",
-          flush=True)
-    return {"ms": t, "terms": terms, "marginal": marg, "row_list": (mean, most)}
+          f"{most} at most, of {tgt.D.shape[0] * tgt.D.shape[1]} (the stubbed W weights all); "
+          f"{union:.4f} distinct D rows a block of K1 v3 on average, staged rows / rows read "
+          f"{share:.4f}", flush=True)
+    return {"ms": t, "terms": terms, "marginal": marg, "row_list": (mean, most, union, share)}
 
 
 if __name__ == "__main__":

@@ -1,12 +1,22 @@
-"""The large-nd lane's kernels of this checkout against another checkout's, on the card.
+"""The large-nd lane's kernels and the fused posteriors of this checkout against another
+checkout's, on the card.
 
     python -m mcmc_spec_tpu_torch.scripts.lane_against_checkout <other checkout> [kernel]
 
 ``kernel`` is one of ``KERNELS``: ``model_extinct`` (K6), ``renorm_partials`` (K8),
-``resid_chi2`` (K9 with renorm, stage 2's evaluation) or ``resid_chi2_raw`` (K9
-without renorm, the annealer's scoring); all four where it is left out.  The other
-checkout is, for example, the parent commit unpacked with ``git archive`` into a
-directory that ``.gitignore`` lists.
+``resid_chi2`` (K9 with renorm, stage 2's evaluation), ``resid_chi2_raw`` (K9
+without renorm, the annealer's scoring), ``posterior_fused`` (K1) or
+``posterior_fleet_fused`` (K5); all six where it is left out.  The other checkout is,
+for example, the parent commit unpacked with ``git archive`` into a directory that
+``.gitignore`` lists.
+
+K1 and K5 run on the benchmark cells' shapes: K1 on the bench target (nd = 1,792)
+over 32,768 walkers around the truth and over the first 16,384 (a stretch half-step),
+K5 on ``chip_smoke.build_fleet``'s nine ragged targets padded to nd = 1,792 over 9 x
+4,096 walkers and the first 9 x 2,048, each at the production dials (14, 3, 2) and the
+exact ones (31, 6, 0).  The walkers are saved with the inputs; each child builds the
+targets with its own package.  Their outputs are compared bit for bit (walkers the
+same, as int32 patterns).
 
 The script makes the inputs once, on the bench target at nd = 65,536
 (``grid_step`` 8) with 1,024 walkers around the truth, and saves them: K6's (the
@@ -50,20 +60,50 @@ from mcmc_spec_tpu_torch.scripts.timing import describe, resolve_device
 NW, ND = 1024, 65536  # the JAX largend cell's evaluation batch and width
 NW_STAGE2 = 171  # the larger half-step of the fit's stage 2 (341 walkers)
 ITERS, RECIP = 14, 2  # the production median and reciprocal dials
-KERNELS = ("model_extinct", "renorm_partials", "resid_chi2", "resid_chi2_raw")
+LANE = ("model_extinct", "renorm_partials", "resid_chi2", "resid_chi2_raw")
+POSTERIORS = ("posterior_fused", "posterior_fleet_fused")
+KERNELS = LANE + POSTERIORS
+NW_K1, NW_K5 = 32768, 4096  # the cells' walkers: koi2298.stage2's; fleet9.fused's a target
+DIALS = {"prod": (14, 3, 2), "exact": (31, 6, 0)}  # median_iters, matmul_passes, recip_newton
 RTOL = 5e-5  # the kernel gate (chip_smoke.compare)
 HERE = Path(__file__).resolve().parents[2]
 
 # run in a checkout's root: its own package, its own build.  argv: inputs, outputs,
 # device, the kernels (comma-separated), the walker counts (comma-separated)
 _CHILD = """
-import json, statistics, sys, time
+import dataclasses, json, statistics, sys, time
 import torch
+from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
 from mcmc_spec_tpu_torch.ops import spec_segmented as seg
 dev = torch.device(sys.argv[3])
 x = {k: v.to(dev) for k, v in torch.load(sys.argv[1]).items()}
-recip = int(x["recip"])
+recip = int(x["recip"]) if "recip" in x else 0
+tgts = {}
+if "P_k1" in x:
+    from mcmc_spec_tpu_torch.bench_target import build_bench_target
+    tgts["posterior_fused"] = build_bench_target(torch.float32, device=dev)[0]
+if "P_k5" in x:
+    import chip_smoke
+    tgts["posterior_fleet_fused"] = chip_smoke.build_fleet(dev)[0]
+DIALS = {"prod": (14, 3, 2), "exact": (31, 6, 0)}
+def dialled(k, d):
+    it, mm, rn = DIALS[d]
+    return dataclasses.replace(tgts[k], median_iters=it, matmul_passes=mm, recip_newton=rn)
 def calls(n):
+    if n < 0:  # the posteriors on 1 / -n of their walkers (K5: of each target's)
+        out = {}
+        for d in DIALS:
+            if "P_k1" in x:
+                P1 = x["P_k1"][: x["P_k1"].shape[0] // -n].contiguous()
+                t1 = dialled("posterior_fused", d)
+                out[f"posterior_fused {d} {P1.shape[0]}"] = (
+                    lambda P1=P1, t1=t1: ck.log_posterior_fused(P1, t1))
+            if "P_k5" in x:
+                P5 = x["P_k5"][:, : x["P_k5"].shape[1] // -n].contiguous()
+                t5 = dialled("posterior_fleet_fused", d)
+                out[f"posterior_fleet_fused {d} {P5.shape[0] * P5.shape[1]}"] = (
+                    lambda P5=P5, t5=t5: ck.log_posterior_fleet_fused(P5, t5))
+        return out
     m, sc = x["model"][:n].contiguous(), x["scale"][:n].contiguous()
     c = x["coeffs"][:n].contiguous()
     W, av = x["Wcomb"][:n].contiguous(), x["av"][:n].contiguous()
@@ -98,10 +138,12 @@ outs, times, alones = {}, {}, {}
 for n in map(int, sys.argv[5].split(",")):
     fns = calls(n)
     for k in sys.argv[4].split(","):
-        outs[f"{k} {n}"] = fns[k]().cpu()
-        t = [ms(fns[k]) for _ in range(23)][3:]
-        times[f"{k} {n}"] = statistics.median(t)
-        alones[f"{k} {n}"] = alone(fns[k])
+        for name in [f for f in fns if f == k or f.startswith(k + " ")]:
+            key = name if n < 0 else f"{name} {n}"
+            outs[key] = fns[name]().cpu()
+            t = [ms(fns[name]) for _ in range(23)][3:]
+            times[key] = statistics.median(t)
+            alones[key] = alone(fns[name])
 torch.save(outs, sys.argv[2])
 print(json.dumps({"events": times, "alone": alones}))
 """
@@ -122,6 +164,23 @@ def lane_inputs(dev, nw=NW, nd=ND) -> dict:
     return {"Wcomb": W, "av": av, "D": D, "kd": tgt.ext_k_data, "model": model,
             "scale": scale, "coeffs": coeffs, "data": tgt.data_flux, "err": tgt.data_err,
             "V": tgt.V, "Vpinv": tgt.Vpinv, "recip": torch.tensor(RECIP)}
+
+
+def posterior_inputs(dev, kernels) -> dict:
+    """The fused posteriors' walkers: K1's ``NW_K1`` around the bench target's truth, K5's
+    ``NW_K5`` around each of ``chip_smoke.build_fleet``'s targets' (seed 1 + i)."""
+    x = {}
+    if "posterior_fused" in kernels:
+        tgt, truth = build_bench_target(torch.float32, device=dev)
+        x["P_k1"] = init_walker_batch(tgt, truth, NW_K1)
+    if "posterior_fleet_fused" in kernels:
+        sys.path.insert(0, str(HERE))
+        import chip_smoke
+
+        _, singles, truth = chip_smoke.build_fleet(dev)
+        x["P_k5"] = torch.stack([init_walker_batch(t, truth, NW_K5, seed=1 + i)
+                                 for i, t in enumerate(singles)])
+    return x
 
 
 def gate(a, b) -> tuple:
@@ -151,14 +210,19 @@ def main(other, kernel=None, device="cuda", nw=NW, nd=ND, nw_stage2=NW_STAGE2):
     kernels = KERNELS if kernel is None else (kernel,)
     if not set(kernels) <= set(KERNELS):
         raise ValueError(f"kernel {kernel!r} is not one of {KERNELS}")
-    shapes = (nw, nw_stage2)
+    lane = [k for k in kernels if k in LANE]
+    posteriors = [k for k in kernels if k in POSTERIORS]
+    # the posteriors' shapes: -1 all their walkers (the cells'), -2 half (a half-step's)
+    shapes = ((nw, nw_stage2) if lane else ()) + ((-1, -2) if posteriors else ())
     other = Path(other).resolve()
     print(f"[env] {describe(dev)}", flush=True)
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="lane_against_checkout.", dir=cuda_build.BUILD_DIR))
     try:
         inputs = work / "inputs.pt"
-        torch.save({k: v.cpu() for k, v in lane_inputs(dev, nw, nd).items()}, inputs)
+        x = dict(lane_inputs(dev, nw, nd)) if lane else {}
+        x.update(posterior_inputs(dev, posteriors))
+        torch.save({k: v.cpu() for k, v in x.items()}, inputs)
         outs = {"this": work / "this.pt", "other": work / "other.pt"}
         where = {"this": HERE, "other": other}
         times = {"this": [], "other": []}
@@ -178,14 +242,20 @@ def main(other, kernel=None, device="cuda", nw=NW, nd=ND, nw_stage2=NW_STAGE2):
         t_this, t_other = side("this", "events"), side("other", "events")
         r = {"this_ms": t_this, "other_ms": t_other, "speedup": min(t_other) / min(t_this),
              "this_alone_ms": side("this", "alone"), "other_alone_ms": side("other", "alone")}
-        head = (f"[{key} walkers x nd={nd}] this {min(t_this):.4f} ms, other "
+        width = "nd=1792" if key.startswith(POSTERIORS) else f"nd={nd}"
+        head = (f"[{key} walkers x {width}] this {min(t_this):.4f} ms, other "
                 f"{min(t_other):.4f} ms (least of two in turns), {r['speedup']:.2f}x; ")
         if None not in r["this_alone_ms"] + r["other_alone_ms"]:
             a_this, a_other = min(r["this_alone_ms"]), min(r["other_alone_ms"])
             r["speedup_alone"] = a_other / a_this
             head += (f"alone this {a_this:.4f} ms, other {a_other:.4f} ms, "
                      f"{r['speedup_alone']:.2f}x; ")
-        if key.startswith("model_extinct"):
+        if key.startswith(POSTERIORS):
+            same = a[key].view(torch.int32) == b[key].view(torch.int32)
+            r.update(walkers_same=int(same.sum()), walkers=same.numel())
+            print(head + f"{r['walkers_same']} of {r['walkers']} walkers bit-identical to the "
+                  "other checkout's", flush=True)
+        elif key.startswith("model_extinct"):
             same = (a[key].view(torch.int32) == b[key].view(torch.int32)).all(dim=1)
             r.update(rows_same=int(same.sum()), rows=a[key].shape[0])
             print(head + f"{r['rows_same']} of {r['rows']} rows bit-identical to the other "

@@ -23,7 +23,6 @@ from mcmc_spec_tpu_torch.scripts.timing import describe, resolve_device
 NWALK = 32768
 NDS = (896, 1792, 3584)
 N_LAUNCHES = 20
-SM_SMEM_BYTES = 233472  # an H100 SM's shared memory; each block also holds 1 KB of its own
 
 
 def trace_one(tag, fn, kernel):
@@ -39,10 +38,10 @@ def trace_one(tag, fn, kernel):
 
 def residency(nd: int, NO: int, nspec: int) -> tuple:
     """(walkers a block, walkers an SM) of K1 at ``nd``: the blocks an SM's shared memory
-    holds, one warp a walker."""
-    wpb = ck.walkers_per_block(nd, NO, 1 + nspec)
-    block = wpb * ck.warp_smem_bytes(nd, NO, 1 + nspec) + 1024
-    return wpb, wpb * (SM_SMEM_BYTES // block)
+    holds, one warp a walker, each block with its tile buffers (v3)."""
+    wpb, stage = ck.staged_block(nd, NO, 1 + nspec)
+    block = ck.staged_smem_bytes(nd, NO, 1 + nspec, wpb, stage) + ck.BLOCK_RESERVED_BYTES
+    return wpb, wpb * (ck.SM_SMEM_BYTES // block)
 
 
 def main(device="cuda", nwalk=NWALK, nds=NDS, grid_step=1.0):

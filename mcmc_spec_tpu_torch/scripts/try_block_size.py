@@ -3,12 +3,14 @@
 
 JAX swept the Pallas ``eval_block`` (128, 256, 512 walkers).  A block of K1 holds
 one walker a warp, so the port sweeps the walkers a block from 1 to
-``WALKERS_MAX`` (each that its shared memory admits; the production choice is
-``walkers_per_block``), at the production dials:
+``WALKERS_MAX_STAGED`` (each that its shared memory admits with its tile buffers,
+``staged_block``, which also sizes the buffers; the production choice is
+``staged_block``'s own), at the production dials:
 
 [A] the stage-2 sampler's rate at each block size: 32,768 walkers on the bench
     target, ``run_ensemble`` of 512 steps once to warm up, then the best of three
-    timed runs (the card synchronised), K1 called with the block size;
+    timed runs (the card synchronised), K1 called with the block size; and K1 alone
+    on half of them (a half-step's batch) with ``device_loop_time``;
 [B] the direct call against nd (896, 1,792, 3,584) at the production block,
     timed with ``utils.profiling.device_loop_time`` (no dispatch), with what a
     time proportional to nd would give.
@@ -25,7 +27,6 @@ from mcmc_spec_tpu_torch.inference.stretch import init_ensemble, run_ensemble
 from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
 from mcmc_spec_tpu_torch.scripts import ablate_matrix as am
 from mcmc_spec_tpu_torch.scripts.timing import describe, resolve_device
-from mcmc_spec_tpu_torch.scripts.try_fleet_block import fitting_blocks
 from mcmc_spec_tpu_torch.utils.profiling import device_loop_time
 
 NWALK = 32768
@@ -54,18 +55,30 @@ def sampler_rate(tgt, coords, wpb, n_steps=NSTEPS):
     return best
 
 
+def fitting_blocks(nd: int, NO: int, weight_rows: int) -> list:
+    """The walkers-per-block counts of K1 v3 whose shared memory a block admits."""
+    return [w for w in range(1, ck.WALKERS_MAX_STAGED + 1)
+            if ck.stage_floats(nd, NO, weight_rows, w)[0] > 0]
+
+
 def main(device="cuda", nwalk=NWALK, nds=NDS, grid_step=1.0, n_steps=NSTEPS):
     dev = resolve_device(device)
     print(f"[env] {describe(dev)}", flush=True)
     tgt, coords = am.prepare(dev, nwalk, 1792 if 1792 in nds else nds[0], grid_step)
     nT, nG, nd = tgt.D.shape
-    default = ck.walkers_per_block(nd, nT * nG, 1 + tgt.nspec)
+    default = ck.staged_block(nd, nT * nG, 1 + tgt.nspec)[0]
     print(f"[A] sampler rate against walkers a block, {nwalk} walkers, nd={nd} (production "
           f"dials; the production block holds {default}):", flush=True)
-    rates = {}
+    rates, alone = {}, {}
+    half = coords[: max(coords.shape[0] // 2, 1)]
     for w in fitting_blocks(nd, nT * nG, 1 + tgt.nspec):
         rates[w] = sampler_rate(tgt, coords, w, n_steps)
-        print(f"    walkers_per_block={w}: {rates[w] / 1e6:.2f}M evals/s", flush=True)
+        alone[w] = device_loop_time(
+            lambda q, w=w: ck.log_posterior_fused(q, tgt, walkers_per_block=w), half) * 1e3
+        per_sm, stage = ck.stage_floats(nd, nT * nG, 1 + tgt.nspec, w)
+        print(f"    walkers_per_block={w} ({per_sm} blocks an SM, tiles of {stage} floats): "
+              f"{rates[w] / 1e6:.2f}M evals/s; K1 alone on {half.shape[0]} walkers "
+              f"{alone[w]:.4f} ms", flush=True)
     print("[B] direct call against nd (production block, device_loop_time):", flush=True)
     calls = {}
     for n in nds:
@@ -77,7 +90,7 @@ def main(device="cuda", nwalk=NWALK, nds=NDS, grid_step=1.0, n_steps=NSTEPS):
         print(f"    (time proportional to nd from {nd} would give "
               + ", ".join(f"{calls[nd] * n / nd:.4f} ms at {n}" for n in nds if n != nd) + ")",
               flush=True)
-    return {"rates": rates, "default": default, "calls": calls}
+    return {"rates": rates, "alone": alone, "default": default, "calls": calls}
 
 
 if __name__ == "__main__":

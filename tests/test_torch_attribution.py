@@ -290,8 +290,11 @@ def test_posterior_pair_and_blocks_are_k1():
         np.testing.assert_array_equal(ck.log_posterior_fused(P, tt, walkers_per_block=w).numpy(),
                                       k1)
         np.testing.assert_array_equal(ck.posterior_pair(P, tt, walkers_per_block=w).numpy(), k1)
-    for bad in (0, 9, 2.5):
-        for fn in (ck.log_posterior_fused, ck.posterior_pair):
+    for w in (12, 16):  # K1 v3's blocks hold up to 16 walkers, S15's (v2) 8
+        np.testing.assert_array_equal(ck.log_posterior_fused(P, tt, walkers_per_block=w).numpy(),
+                                      k1)
+    for fn, bads in ((ck.log_posterior_fused, (0, 17, 2.5)), (ck.posterior_pair, (0, 9, 2.5))):
+        for bad in bads:
             with pytest.raises(ValueError, match="walkers a block"):
                 fn(P, tt, walkers_per_block=bad)
     src = (cuda_build.CSRC / "posterior_pair.cu").read_text()
@@ -319,14 +322,15 @@ def test_block_keyword_on_k4_and_its_launch(odd_fleet):
     assert try_fleet_block.fitting_blocks(nd, 56, 0) == [1]
 
 
-@pytest.mark.parametrize("name,counts", [("posterior_ablate_launch", (20, 14, 3, 2)),
-                                         ("posterior_pair_launch", (20, 14, 3, 1)),
-                                         ("fleet_sections_launch", (11, 8, 0, 0))])
+# S13 (K1 v3's): then the staging counter, the tile size, the walkers a block, the variant
+@pytest.mark.parametrize("name,counts", [("posterior_ablate_launch", (20, 14, 3, "PIII")),
+                                         ("posterior_pair_launch", (20, 14, 3, "I")),
+                                         ("fleet_sections_launch", (11, 8, 0, ""))])
 def test_launch_signatures_match_the_sources(name, counts):
-    pointers, ints, floats, ints2 = counts
+    pointers, ints, floats, tail = counts
     assert ck._SIGNATURES[name] == _c_signature(name)
     assert ck._SIGNATURES[name] == ([ck._P] * pointers + [ck._I] * ints + [ck._F] * floats
-                                    + [ck._I] * ints2 + [ck._P])
+                                    + [{"P": ck._P, "I": ck._I}[c] for c in tail] + [ck._P])
     for src in ("posterior_ablate.cu", "fleet_sections.cu", "posterior_pair.cu"):
         assert src in cuda_build.SOURCES and (cuda_build.CSRC / src).is_file()
 
@@ -334,12 +338,14 @@ def test_launch_signatures_match_the_sources(name, counts):
 def test_gates_default_to_the_production_body():
     warp = (cuda_build.CSRC / "posterior_warp.cuh").read_text()
     assert ("template <bool kPhot = true, bool kPriors = true, bool kSpectrum = true, "
-            "bool kW = true>") in warp
+            "bool kW = true,\n          bool kStaged = false>") in warp
     spec = (cuda_build.CSRC / "spectrum_warp.cuh").read_text()
     assert "template <bool kMatmul = true, bool kExtinct = true, bool kMedian = true>" in spec
-    # K1 and K5 call the bodies without template arguments: every section on
+    # K1 and K5 call the staged body with every section on; S15 the v2 body without
+    # template arguments
     for src in ("log_posterior_fused.cu", "log_posterior_fleet_fused.cu"):
-        assert "posterior_warp(a, " in (cuda_build.CSRC / src).read_text()
+        assert "posterior_warp<true, true, true, true, true>(" in (cuda_build.CSRC / src).read_text()
+    assert "posterior_warp(a, " in (cuda_build.CSRC / "posterior_pair.cu").read_text()
     for src in ("spectrum_chi2.cu", "spectrum_chi2_fleet.cu"):
         assert "spectrum_warp(Wcomb" in (cuda_build.CSRC / src).read_text()
 
@@ -463,8 +469,10 @@ def test_main_runs_on_the_cpu(name, capsys):
     if name == "ablate_matrix":
         assert set(out["ms"]) == set(ck.ABLATE_MASKS) and "c_{PRSW}" in text
         assert all(v > 0 for v in out["ms"].values())
-        mean, most = out["row_list"]
+        mean, most, union, share = out["row_list"]
         assert 0 < mean <= most <= 8 and "production row list" in text
+        wpb = ck.staged_block(96, 56, 3)[0]
+        assert most <= union <= min(wpb * most, 56) and 0 < share <= 1
     elif name == "ablate_matrix_traced":  # no device time on the CPU: nothing fitted
         assert all(r["kernel_ms_device"] is None for r in out["rows"].values())
         assert "nothing fitted" in text
@@ -482,7 +490,8 @@ def test_main_runs_on_the_cpu(name, capsys):
     elif name == "try_fleet_block":
         assert sorted(out["blocks"]) == list(range(1, 9)) and out["frozen"] is None
     elif name == "try_block_size":
-        assert sorted(out["rates"]) == list(range(1, 9)) and set(out["calls"]) == {96, 192}
+        assert sorted(out["rates"]) == list(range(1, 17)) and set(out["calls"]) == {96, 192}
+        assert sorted(out["alone"]) == sorted(out["rates"])
     elif name == "try_two_blocks":
         assert set(out) == {"k1_8", "k1_4", "pair_4", "pair_8"}
     elif name == "attr_segmented":

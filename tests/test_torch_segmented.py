@@ -296,12 +296,18 @@ def test_fleet_guard_raises_before_launch(monkeypatch, fused):
         monkeypatch.setenv("MCMC_SPEC_FUSED_EVAL", "1")
     nT, nG = stacked.D.shape[1:3]
     # K4 and K5 run one warp per walker: the widest row one warp holds, K5's beside its
-    # 1 + nspec rows of weights
+    # 1 + nspec rows of weights and its block's tile buffers
     rows = 1 + stacked.nspec if fused else 0
-    limit = ck.warp_max_nd(nT * nG, rows)
-    assert ck.walkers_per_block(limit, nT * nG, rows) == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        ck.walkers_per_block(limit + 1, nT * nG, rows)
+    if fused:
+        limit = ck.staged_max_nd(nT * nG, rows)
+        assert ck.staged_block(limit, nT * nG, rows)[0] == 1
+        with pytest.raises(ValueError, match="shared memory"):
+            ck.staged_block(limit + 1, nT * nG, rows)
+    else:
+        limit = ck.warp_max_nd(nT * nG, rows)
+        assert ck.walkers_per_block(limit, nT * nG, rows) == 1
+        with pytest.raises(ValueError, match="shared memory"):
+            ck.walkers_per_block(limit + 1, nT * nG, rows)
     wide = dataclasses.replace(stacked, D=torch.zeros(2, nT, nG, limit + 1))
     with pytest.raises(ValueError, match=rf"nd={limit + 1}.*nd={limit}.*segmented"):
         fleet.log_posterior_fleet(P, wide)

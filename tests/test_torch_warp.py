@@ -1,9 +1,11 @@
 """PyTorch port: the one-warp-per-walker K1 and K3 (CPU).
 
-* ``walkers_per_block``: how many walkers (warps) a block of the fused
-  posterior K1 or the spectrum-chi^2 kernel K3 holds, from the shared memory
-  one walker needs (``warp_smem_bytes``, the twin of ``warp_smem_floats`` in
-  ``csrc/spectrum_warp.cuh``).
+* ``walkers_per_block``: how many walkers (warps) a block of the
+  spectrum-chi^2 kernel K3 (and K1's v2 body in S15) holds, from the shared
+  memory one walker needs (``warp_smem_bytes``, the twin of
+  ``warp_smem_floats`` in ``csrc/spectrum_warp.cuh``); ``staged_block``, the
+  walkers and tile buffers of a block of K1 and K5 v3 (``staged_smem_bytes``,
+  the twin of ``staged_smem_floats`` in ``csrc/spectrum_stage.cuh``).
 * The ``matmul_passes`` receipt: the port computes the full f32 ``Wcomb @ D``
   at every dial; K1's plain version at the production dials (14, 3, 2)
   against the JAX kernel in interpret mode at (14, 3, 2), whose split-bf16
@@ -76,6 +78,80 @@ def test_warp_smem_bytes_mirrors_the_header():
     assert ck._SIGNATURES["log_posterior_fused_launch"][-2] is ck._I
     assert ck._SIGNATURES["spectrum_chi2_launch"][-2] is ck._I
     assert ck._SIGNATURES["log_posterior_fleet_fused_launch"][-2] is ck._I
+
+
+# ---------------------------------------------------------------------------
+# K1 and K5 v3: the block's layout (csrc/spectrum_stage.cuh)
+
+
+def test_staged_smem_bytes_mirrors_the_header():
+    """``staged_smem_bytes`` is the header's ``staged_smem_floats`` times 4: the warps'
+    slices, the union (mask, slot map, list lengths) and two tile buffers; K1, K5 and
+    S13 size their blocks with it and take the counter, the tile size and the walkers a
+    block last, before the stream."""
+    src = (cuda_build.CSRC / "spectrum_stage.cuh").read_text()
+    floats = re.search(r"staged_smem_floats\(int nd, int NO, int weight_rows, int wpb,\s*"
+                       r"int stage\) \{\s*return ([^;]+);", src)
+    assert floats and " ".join(floats.group(1).split()) == (
+        "wpb * warp_smem_floats(nd, NO, weight_rows) + stage_union_words(NO) + 2 * stage")
+    union = re.search(r"stage_union_words\(int NO\) \{\s*return ([^;]+);", src)
+    assert union and union.group(1) == "round4((NO + 31) / 32) + round4(NO) + 4"
+    assert "spectrum_stage.cuh" in cuda_build.HEADERS
+    assert re.search(r"kStagedWalkersMax = (\d+);", src).group(1) == str(ck.WALKERS_MAX_STAGED)
+    for nd, rows, wpb, stage in ((1792, 3, 16, 12320), (401, 4, 3, 960), (4096, 3, 12, 2624)):
+        union_words = (1 + 3) // 4 * 4 + (NO + 3) // 4 * 4 + 4  # NO = 56: two mask words
+        assert ck.staged_smem_bytes(nd, NO, rows, wpb, stage) == (
+            wpb * ck.warp_smem_bytes(nd, NO, rows) + 4 * (union_words + 2 * stage))
+    for kernel in ("log_posterior_fused.cu", "log_posterior_fleet_fused.cu", "posterior_ablate.cu"):
+        assert "staged_smem_floats(nd, NO, 1 + nspec, wpb, stage)" in (
+            cuda_build.CSRC / kernel).read_text()
+    for name in ("log_posterior_fused_launch", "log_posterior_fleet_fused_launch"):
+        assert ck._SIGNATURES[name][-5:] == [ck._F, ck._P, ck._I, ck._I, ck._P]
+
+
+def test_staged_block_at_the_main_path_shapes():
+    """16 walkers a block, one block an SM, at the bench row (both cells' nd); 12 at
+    nd = 4,096 (the largest row the dispatch gives K1); each with the rest of the block's
+    shared memory in its two tile buffers."""
+    assert ck.staged_block(1792, NO, 3) == (16, 12320)
+    assert ck.staged_block(1792, NO, 4) == (16, 11872)
+    assert ck.staged_block(4096, NO, 3) == (12, 2624)
+    for nd, rows in ((1792, 3), (4096, 3)):
+        wpb, stage = ck.staged_block(nd, NO, rows)
+        assert ck.staged_smem_bytes(nd, NO, rows, wpb, stage) <= ck.ROW_SMEM_BYTES
+        assert ck.stage_floats(nd, NO, rows, wpb)[0] == 1
+
+
+@pytest.mark.parametrize("rows", [3, 4])
+@pytest.mark.parametrize("nd", [96, 400, 401, 1791, 1792, 4096, 8000])
+def test_staged_block_is_the_largest_that_fits(nd, rows):
+    """The block's tile buffers take a build tile of 32 points of every grid row and kd
+    and a tail tile of 5 rows; a block of one walker more would not fit; the tiles'
+    size is a multiple of 32 floats and at most one tile of the whole row of every row."""
+    wpb, stage = ck.staged_block(nd, NO, rows)
+    assert 1 <= wpb <= ck.WALKERS_MAX_STAGED
+    assert stage % 32 == 0 and 32 * (NO + 1) <= stage <= (NO + 1) * ((nd + 31) // 32 * 32)
+    assert ck.staged_smem_bytes(nd, NO, rows, wpb, stage) <= ck.ROW_SMEM_BYTES
+    if wpb < ck.WALKERS_MAX_STAGED:
+        assert ck.staged_smem_bytes(nd, NO, rows, wpb + 1, 32 * (NO + 1)) > ck.ROW_SMEM_BYTES
+    for w in range(1, ck.WALKERS_MAX_STAGED + 1):  # every block size the sweep may ask for
+        per_sm, st = ck.stage_floats(nd, NO, rows, w)
+        if per_sm:
+            assert ck.staged_block(nd, NO, rows, w) == (w, st)
+            block = ck.staged_smem_bytes(nd, NO, rows, w, st) + ck.BLOCK_RESERVED_BYTES
+            assert per_sm * block <= ck.SM_SMEM_BYTES and st % 32 == 0
+        else:
+            with pytest.raises(ValueError, match="walkers a block"):
+                ck.staged_block(nd, NO, rows, w)
+
+
+def test_staged_block_raises_where_no_block_fits():
+    nd = ck.warp_max_nd(NO, 3)  # one walker's row fills a block: no room for the tiles
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.staged_block(nd, NO, 3)
+    for bad in (0, 17, 2.5):
+        with pytest.raises(ValueError, match="walkers a block"):
+            ck.staged_block(1792, NO, 3, bad)
 
 
 MATMUL_DIAL3_RTOL = 3e-4  # the JAX docstring's figure for dial 3 (pallas_kernels._dot_f32)
