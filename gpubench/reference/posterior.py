@@ -1,13 +1,21 @@
-"""The log-posterior of a binary-star fit over a batch of walkers, in plain PyTorch.
+"""The log-posterior of a binary- or triple-star fit over a batch of walkers, in plain
+PyTorch.
 
-A walker is (T1, T2, Av, R1, R2/R1, parallax).  Each component's spectrum is the
-bilinear blend of the four model-grid rows around (Teff, logg(Teff)), scaled by
+A walker of a binary (``nspec`` 2) is (T1, T2, Av, R1, R2/R1, parallax); of a triple
+(``nspec`` 3) (T1, T2, T3, Av, R1, R2/R1, R3/R1, parallax).  Each component's spectrum
+is the bilinear blend of the four model-grid rows around (Teff, logg(Teff)), scaled by
 (R RSUN parallax / PC)^2; the composite is reddened by CCM89 (Av > 0), matched to the
 data's median, divided into the data for a degree-2 continuum fit, and compared by
 chi^2, the mean over the data points weighted by the number of bands.  Contrasts are
-magnitude differences of the components' filter fluxes, photometry the composite's AB
+magnitude differences of the components' filter fluxes: a binary's each companion
+minus primary; a triple's split on the contrast count nc as the reference pipeline
+splits its contrast list (``mft6.py``), contrast j < nc // 2 component 2 minus the
+primary, the rest component 3 minus the primary.  Photometry is the composite's AB
 magnitudes plus Av k(band).  Priors: the Av prior at the walker's distance, Gaussian
-priors where the configuration sets a mean, and the bounds.
+priors where the configuration sets a mean, and the bounds of the pipeline's
+``logprior``, which follow ``nspec``: Teff inside the grid, Av >= 0, every radius ratio
+>= 0.05, parallax <= 0.25, R1 in [0.05, 1.5] and parallax >= 1/3000 for a binary, R1
+>= 0.05 and parallax >= 1/1000 for a triple.  Other values of ``nspec`` raise.
 
 Two of the configuration's dials change the arithmetic, as the configuration states
 them: the data median is found by halving [0, +inf's pattern] over the float32 bit
@@ -33,6 +41,15 @@ PC_CM = 3.086e18
 LN10 = math.log(10.0)
 F32_INF_BITS = 0x7F800000
 RECIP_MAGIC = 0x7EF311C3
+# nspec: (R1's ceiling, parallax's floor) of the reference pipeline's logprior
+BOUNDS = {2: (1.5, 1.0 / 3000.0), 3: (math.inf, 1.0 / 1000.0)}
+
+
+def companions(nspec: int, nc: int) -> list:
+    """The component that each of ``nc`` contrasts sets against the primary (0)."""
+    if nspec not in BOUNDS:
+        raise ValueError(f"the reference covers nspec 2 and 3, not {nspec}")
+    return [1 if nspec == 2 or j < nc // 2 else 2 for j in range(nc)]
 
 
 def tables(ref: dict, device, dtype=torch.float32) -> dict:
@@ -87,6 +104,7 @@ def median_bits(model, iters: int):
 
 def _block(p, t, iters, recip):
     n = t["nspec"]
+    comp = companions(n, t["Fc"].shape[1])
     nT, nG = t["temps"].shape[0], t["loggs"].shape[0]
     tiny = torch.finfo(p.dtype).tiny
     teffs, av = p[:, :n], p[:, n]
@@ -102,7 +120,8 @@ def _block(p, t, iters, recip):
         sWk = scales[:, s:s + 1] * Wk
         Wcomb = Wcomb + sWk
         cmags.append(-2.5 / LN10 * torch.log(torch.clamp(sWk @ t["Fc"], min=tiny)))
-    contrasts = cmags[1] - cmags[0]
+    rows, cols = torch.as_tensor(comp, device=p.device), torch.arange(len(comp), device=p.device)
+    contrasts = torch.stack(cmags, dim=1)[:, rows, cols] - cmags[0]
     phot = -2.5 / LN10 * torch.log(torch.clamp((Wcomb @ t["Fp"]) / t["zp"], min=tiny))
     reddened = (av > 0)[:, None]
     phot = torch.where(reddened, phot + av[:, None] * t["k_cwl"], phot)
@@ -130,8 +149,9 @@ def _block(p, t, iters, recip):
     gauss = -0.5 * ((p - t["prior_mu"]) / t["prior_sig"]) ** 2
     lp = lp + torch.where(active, gauss, torch.zeros_like(gauss)).sum(dim=1)
     ok = ((teffs >= t["tmin"]) & (teffs <= t["tmax"])).all(dim=1) & (av >= 0)
-    ok &= (ratios >= 0.05).all(dim=1) & (r1 >= 0.05) & (r1 <= 1.5)
-    ok &= (plx >= 1.0 / 3000.0) & (plx <= 0.25)
+    r1_max, plx_min = BOUNDS[n]
+    ok &= (ratios >= 0.05).all(dim=1) & (r1 >= 0.05) & (r1 <= r1_max)
+    ok &= (plx >= plx_min) & (plx <= 0.25)
     lp = torch.where(ok, lp, torch.full_like(lp, -math.inf))
     return torch.where(torch.isfinite(lp), lp + ll, torch.full_like(lp, -math.inf))
 
@@ -154,7 +174,8 @@ def block_rows(nd: int) -> int:
 
 
 def log_posterior(P, t, iters: int, recip: int, tf32: bool = False):
-    """[B] float32 log-posteriors of the walkers ``P`` [B, 6] on the tables ``t``."""
+    """[B] float32 log-posteriors of the walkers ``P`` [B, 2 nspec + 2] on the tables
+    ``t``."""
     P = P.to(device=t["D"].device, dtype=torch.float32)
     block = block_rows(t["D"].shape[1])
     with torch.no_grad(), matmul_precision(tf32):
@@ -172,9 +193,10 @@ def _host_weights(nodes, q):
 
 
 def forward_bands(p, ref: dict):
-    """(contrasts, unreddened AB magnitudes) of one walker ``p`` [6] at float64 on the
-    host: the scalar forward model the observations are made from."""
+    """(contrasts, unreddened AB magnitudes) of one walker ``p`` [2 nspec + 2] at float64
+    on the host: the scalar forward model the observations are made from."""
     n = ref["nspec"]
+    comp = companions(n, ref["Fc"].shape[1])
     teffs, r1, ratios, plx = p[:n], p[n + 1], np.asarray(p[n + 2:2 * n + 1]), p[2 * n + 1]
     base = (r1 * RSUN_CM * plx / PC_CM) ** 2
     scales = np.concatenate([[base], base * ratios**2])
@@ -186,4 +208,4 @@ def forward_bands(p, ref: dict):
         cflux.append(w @ ref["Fc"])
         pflux = pflux + w @ ref["Fp"]
     mags = -2.5 * np.log10(np.stack(cflux))
-    return mags[1] - mags[0], -2.5 * np.log10(pflux / ref["zp"])
+    return mags[comp, np.arange(len(comp))] - mags[0], -2.5 * np.log10(pflux / ref["zp"])

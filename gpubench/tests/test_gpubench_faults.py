@@ -1,6 +1,7 @@
-"""A run of each cell past the harness's look for a card, with the timed path broken
-underneath: sound, it comes out correct; broken, not correct.  On the CPU at a small
-size, and on the card at the cell's own size.  The faults a sampler cell can have: a
+"""A run of each cell of ``BENCHMARK.json`` past the harness's look for a card, with the
+timed path broken underneath: sound, it comes out correct; broken, not correct.  On the
+CPU at a small size that follows from the cell's driver, and on the card at the cell's
+own size.  The faults a sampler cell can have: a
 step that returns its state unchanged; half of the batch left out (the first half's
 answers stand in for the rest); an answer altered where it is produced; and every
 proposal accepted, whatever the accept test says.  (One card: no exchange between
@@ -11,8 +12,15 @@ import torch
 from gpubench.harness import bench, check
 from mcmc_spec_tpu_torch.inference import batched, fleet, stretch
 
-CELLS = {"koi2298.stage2": dict(walkers=96, chunk=16, nd=300, grid_step=8.0),
-         "fleet9.fused": dict(walkers=48, chunk=16, grid_step=8.0)}
+SPEC = bench.load_json(bench.ROOT / "BENCHMARK.json")
+CELLS = [w["name"] for w in SPEC["workloads"]]
+# the CPU's sizes of a cell, by the driver its file names
+CPU_SIZES = {"stage2": dict(walkers=96, chunk=16, nd=300, grid_step=8.0),
+             "fleet": dict(walkers=48, chunk=16, grid_step=8.0)}
+
+
+def cpu_sizes(cell: str) -> dict:
+    return CPU_SIZES[bench.resolve(SPEC, cell)["cell"]["driver"]]
 
 
 def _unchanged(state, *args, **kwargs):
@@ -55,23 +63,30 @@ FAULTS = {
 }
 
 
-def run_cell(cell, fault, device, sizes, monkeypatch):
+def run_resolved(res, fault, device, monkeypatch):
+    """(the check's numbers, correct) of a run of the resolved cell ``res`` (``bench.resolve``
+    or its like) with the timed path broken by ``fault``."""
     # the fleet's driver puts its recorder in the program's module: restore it after
     monkeypatch.setattr(fleet, "log_posterior_fleet", fleet.log_posterior_fleet)
     for (module, name), wrap in FAULTS[fault].items():
         monkeypatch.setattr(module, name, wrap(getattr(module, name)))
-    res = bench.resolve(bench.load_json(bench.ROOT / "BENCHMARK.json"), cell)
-    res["cell"] = {**res["cell"], **sizes}
     bench.set_env(res["cfg"], res["cell"])
-    args = bench.parse(["--workload", cell, "--seed", "2147483659", "--seconds", "0.1"])
+    args = bench.parse(["--workload", res["entry"]["name"], "--seed", "2147483659",
+                        "--seconds", "0.1"])
     out = bench.execute(args, res, device, 0.0, log=lambda msg: None)
     return out["numbers"], check.verdict(out["numbers"], res["cell"]["limits"])
+
+
+def run_cell(cell, fault, device, sizes, monkeypatch):
+    res = bench.resolve(SPEC, cell)
+    res["cell"] = {**res["cell"], **sizes}
+    return run_resolved(res, fault, device, monkeypatch)
 
 
 @pytest.mark.parametrize("fault", FAULTS)
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_broken_timed_path_is_not_correct(cell, fault, monkeypatch, clean_env, plain_dials):
-    numbers, correct = run_cell(cell, fault, torch.device("cpu"), CELLS[cell], monkeypatch)
+    numbers, correct = run_cell(cell, fault, torch.device("cpu"), cpu_sizes(cell), monkeypatch)
     assert correct == (fault == "sound"), numbers
 
 
