@@ -9,8 +9,8 @@
 // spectrum_stage.cuh together: the target's tables and the block's union of D
 // rows come from L2 once a block, in shared-memory tiles of `stage` floats, two
 // buffers.  The median is the whole row's and the spectrum chi^2 the mean.
-// `rows`, where not null, counts the D rows staged and the D rows the walkers
-// read from them (the staging counter of ops/cuda_kernels.py).
+// `rows`, where not null, counts the D rows staged, the D rows the walkers
+// read from them and the blocks (the staging counter of ops/cuda_kernels.py).
 #include "posterior_warp.cuh"
 #include "spectrum_warp.cuh"
 

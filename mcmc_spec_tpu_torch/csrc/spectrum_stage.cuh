@@ -64,7 +64,7 @@ struct StageArea {
   int* misc;       // [0] the sum of the active walkers' list lengths
   float* ring;     // [2][stage]
   int stage;
-  unsigned long long* rows;  // nullable: += U, sum of L (the staging counter)
+  unsigned long long* rows;  // nullable: += U, sum of L, 1 (the staging counter)
 };
 
 __device__ __forceinline__ StageArea stage_area(float* dyn, int nd, int NO, int weight_rows,
@@ -203,6 +203,7 @@ __device__ inline float spectrum_staged(const StageArea& sa, bool counted, const
   if (threadIdx.x == 0 && sa.rows != nullptr) {
     atomicAdd(sa.rows, (unsigned long long)U);
     atomicAdd(sa.rows + 1, (unsigned long long)sa.misc[0]);
+    atomicAdd(sa.rows + 2, 1ull);
   }
   __syncthreads();  // urow and every warp's slots are written
 

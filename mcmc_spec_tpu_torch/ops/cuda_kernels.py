@@ -33,8 +33,8 @@ the warp-per-walker posterior body (``csrc/posterior_warp.cuh``), the
 experiment S8 the block-per-walker W path (``csrc/posterior_body.cuh``).
 ``walkers_per_block`` chooses how many walkers a block of K3 or K4 holds,
 ``staged_block`` those of K1 and K5 and their tile buffers; while spans record
-(``utils.profiling``), K1 and K5 count the D rows their blocks staged and the D
-rows their walkers read from them (``profiling.rows_counter``).
+(``utils.profiling``), K1 and K5 count the D rows their blocks staged, the D
+rows their walkers read from them and the blocks (``profiling.rows_counter``).
 
 Beside each kernel is its plain PyTorch version (``*_reference``): f32, the
 same pack-time dials, the arithmetic of the Pallas kernel, on the same
@@ -522,8 +522,8 @@ def _stream(device: torch.device) -> int:
 
 def _rows_ptr(device: torch.device) -> int:
     """The staging counter of K1 and K5 while spans record (``profiling.rows_counter``:
-    the D rows a block staged and the D rows its walkers read from them), else 0, which
-    the kernels take as none."""
+    the D rows a block staged, the D rows its walkers read from them and the block), else
+    0, which the kernels take as none."""
     if not profiling.ON:
         return 0
     rows = profiling.rows_counter(device)
@@ -995,9 +995,9 @@ def fleet_posterior_launch_args(params, fleet):
     """(out, args) of K5 over the fleet walkers ``params`` [ntgt, nw, ndim] on the
     fleet's tables: ``out`` the [ntgt, nw] result, ``args`` the launch arguments
     up to the walkers per block (the stream follows), None when there are no
-    walkers.  The kernel flattens the walkers to [ntgt * nw] and gives a block
-    ``staged_block`` of them, so a block may span two targets.  The staging counter's
-    pointer is 0 (none) here; the wrapper passes the session's while spans record."""
+    walkers.  The kernel gives each target a row of blocks of ``staged_block`` walkers,
+    so no block spans two targets.  The staging counter's pointer is 0 (none) here;
+    the wrapper passes the session's while spans record."""
     iters, _, recip = resolve_dials(fleet)
     dev = params.device
     t = fleet_kernel_tables(fleet)

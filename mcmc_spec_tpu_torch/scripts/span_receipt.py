@@ -27,7 +27,8 @@ events on the card, the sampler's (the difference), the ``eval`` spans' host sel
 (the dispatch and the wrapper), the starved half-steps and how many fall at a chunk's
 start, the two clocks' rate (``clock_scale``) and the events made after the pool ran
 dry, and the staging counter of K1 and K5 (``rows_staged / rows_read``: the D rows
-their blocks copied to shared memory over the D rows their walkers read); in the
+their blocks copied to shared memory over the D rows their walkers read, and
+``rows_staged / blocks_staged``: the D rows a block staged); in the
 profiler's windows, the profiler's own device time a step of the cell's kernel.  Each cell then prints what each arm costs against ``off``, the recorder's own
 host time a step under the profiler (``profiler`` against ``profiler_alone``), the
 ``recording`` windows' kernel time against the profiler's (within 3 %), and the last
@@ -132,12 +133,16 @@ def readings(session) -> dict:
             "starved_at_chunk_start": half.get("starved_at_chunk_start", 0),
             "clock_scale": cols["clock_scale"], "late_events": cols["late_events"],
             "rows_staged": cols["rows_staged"], "rows_read": cols["rows_read"],
+            "blocks_staged": cols["blocks_staged"],
             "_table": table}
 
 
 def _ratio(r) -> str:
-    """``rows_staged / rows_read`` of a window, or "none" where no block counted."""
-    return f"{r['rows_staged'] / r['rows_read']:.4f}" if r["rows_read"] else "none"
+    """``rows_staged / rows_read`` and ``rows_staged / blocks_staged`` of a window, each
+    "none" where no block counted."""
+    read = f"{r['rows_staged'] / r['rows_read']:.4f}" if r["rows_read"] else "none"
+    block = f"{r['rows_staged'] / r['blocks_staged']:.4f}" if r["blocks_staged"] else "none"
+    return f"{read}; {block} a block"
 
 
 def events_a_chunk(session) -> float:
@@ -319,8 +324,9 @@ def run_cell(name, build, dev, seconds, windows, arms=ARMS) -> dict:
                          f"{r['timed_half_steps']} half-steps ({_fmt(r['starved_pct'], '.3f')} "
                          f"%), {r['starved_at_chunk_start']} at a chunk's start; clock scale "
                          f"{r['clock_scale']!r}; {r['late_events']} late events (read in "
-                         f"{r['read_s']:.2f} s); D rows staged / read "
-                         f"{r['rows_staged']} / {r['rows_read']} ({_ratio(r)})")
+                         f"{r['read_s']:.2f} s); D rows staged / read, blocks "
+                         f"{r['rows_staged']} / {r['rows_read']}, {r['blocks_staged']} "
+                         f"({_ratio(r)})")
                 table = r.pop("_table")
                 if arm == "recording":
                     last = table

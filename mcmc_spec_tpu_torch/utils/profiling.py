@@ -240,7 +240,7 @@ class Session:
         self.flags, self.ev_open, self.ev_close = [], [], []
         self.n_chunks = 0
         self.launches: dict = {}
-        self.rows: dict = {}  # device -> int64 [2]: D rows staged, D rows read
+        self.rows: dict = {}  # device -> int64 [3]: D rows staged, D rows read, blocks
         self.closed = False
         self.device = None
         self._launches0 = _launch_counts()
@@ -301,11 +301,11 @@ class Session:
         ``device_close_ns`` (the span's events placed on the host's clock: the anchor's
         host time plus the anchor's ``elapsed_time`` to the event, scaled by the rate of
         the two clocks; None where the span recorded none), and ``launches``,
-        ``chunks``, ``profiled``, ``clock_scale``, ``late_events``, and ``rows_staged`` and
-        ``rows_read``: the D rows K1's and K5's blocks copied to shared memory and the D
-        rows their walkers read from them (:func:`rows_counter`).  Reading waits for
-        the card to pass the session's events; an ended session is read once and its
-        events released."""
+        ``chunks``, ``profiled``, ``clock_scale``, ``late_events``, and ``rows_staged``,
+        ``rows_read`` and ``blocks_staged``: the D rows K1's and K5's blocks copied to
+        shared memory, the D rows their walkers read from them and the blocks that staged
+        (:func:`rows_counter`).  Reading waits for the card to pass the session's events;
+        an ended session is read once and its events released."""
         if self._columns is not None:
             return self._columns
         scale = 1.0
@@ -329,6 +329,7 @@ class Session:
         counts = [t.tolist() for t in self.rows.values()]
         cols["rows_staged"] = sum(c[0] for c in counts)
         cols["rows_read"] = sum(c[1] for c in counts)
+        cols["blocks_staged"] = sum(c[2] for c in counts)
         if self.closed:
             self._columns, self._anchor = cols, None
         return cols
@@ -357,18 +358,18 @@ def _end() -> None:
 
 
 def rows_counter(device):
-    """The staging counter of the session that records, on ``device``: an int64 [2] on
+    """The staging counter of the session that records, on ``device``: an int64 [3] on
     the card that K1 and K5 add to, a block at a time, the D rows it copied to shared
-    memory (its union U) and the D rows its walkers read from them (the sum of their
-    lists), made at the session's first launch that asks.  None outside a session, off
-    the card or while a stream captures a graph."""
+    memory (its union U), the D rows its walkers read from them (the sum of their
+    lists) and 1, made at the session's first launch that asks.  None outside a session,
+    off the card or while a stream captures a graph."""
     s = _session
     device = torch.device(device)
     if s is None or device.type != "cuda" or torch.cuda.is_current_stream_capturing():
         return None
     rows = s.rows.get(device)
     if rows is None:
-        rows = s.rows[device] = torch.zeros(2, dtype=torch.int64, device=device)
+        rows = s.rows[device] = torch.zeros(3, dtype=torch.int64, device=device)
     return rows
 
 

@@ -11,7 +11,9 @@ blend weights (a walker's list of all NO rows, longer than a build chunk), no sp
 last tile), nd = 4,096 (12 walkers a block) and a triple (nspec 3).  K5 v3 is held within
 the gate of its plain version on a fleet whose targets' walkers are no multiple of a
 block, and bit for bit against the same walkers in a larger launch.  The staging counter
-is held against its offline count from the walkers' blend weights.
+of K1 (a binary and a triple) and of K5 (the ragged fleet) is held against its offline
+count from the walkers' blend weights, its blocks against the launch's, and the kernels'
+values with the counter on against those with it off, bit for bit.
 
 The tests need the card and import no JAX: ``python -m pytest --noconftest
 tests/test_torch_staged.py -m card`` on the H100.
@@ -88,11 +90,11 @@ def _case(name, dev):
     return tgt, P
 
 
-def _rows_offline(tgt, P, wpb):
-    """(rows staged, rows read) that K1's counter should read for walkers ``P``: the sum
-    over blocks of the union of their walkers' non-zero blend weights, the last block's
-    missing warps repeating the last walker, and the sum of the walkers' counts."""
-    nz = _forward_small(P, tgt)[4] != 0
+def _rows_offline(nz, wpb):
+    """(rows staged, rows read) that the counter should read for one target's walkers
+    whose non-zero blend weights are ``nz`` [B, NO]: the sum over blocks of the union of
+    their walkers' rows, the last block's missing warps repeating the last walker, and
+    the sum of the walkers' counts."""
     B, NO = nz.shape
     pad = torch.cat([nz, nz[-1:].expand(-B % wpb, NO)]).view(-1, wpb, NO)
     return int(pad.any(dim=1).sum()), int(nz.sum())
@@ -119,28 +121,31 @@ def test_k1_v3_is_v2_bit_for_bit(card, name, dials):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("name", ["cloud", "spread"])
+@pytest.mark.parametrize("name", ["cloud", "spread", "triple"])
 def test_k1_counter_is_the_offline_count(card, name):
-    """While spans record, K1 adds each block's union U and its walkers' list lengths to
-    the session's counter: the offline count from the same walkers' blend weights.  A
-    truth-centred cloud shares its rows (12 a block at koi2298's truth, a tenth of the
-    reads); walkers spread over the grid stage more than 20 a block."""
+    """While spans record, K1 adds each block's union U, its walkers' list lengths and 1
+    to the session's counter: the offline count from the same walkers' blend weights, and
+    the launch's blocks.  A truth-centred cloud shares its rows (12 a block at koi2298's
+    truth, a tenth of the reads); walkers spread over the grid stage more than 20 a
+    block.  The values are the same bits with the counter on and off."""
     tgt, P = _case(name, card)
     tgt = dataclasses.replace(tgt, **DIALS["prod"])
     nT, nG, nd = tgt.D.shape
     wpb = ck.staged_block(nd, nT * nG, 1 + tgt.nspec)[0]
     with profiling.recording() as s:
-        ck.log_posterior_fused(P, tgt)
+        on = ck.log_posterior_fused(P, tgt)
     cols = s.columns()
-    staged, read = _rows_offline(tgt, P, wpb)
-    assert (cols["rows_staged"], cols["rows_read"]) == (staged, read)
+    staged, read = _rows_offline(_forward_small(P, tgt)[4] != 0, wpb)
     blocks = -(-P.shape[0] // wpb)
+    assert (cols["rows_staged"], cols["rows_read"]) == (staged, read)
+    assert cols["blocks_staged"] == blocks
     if name == "cloud":
         assert staged / read <= 0.3
-    else:
+    elif name == "spread":
         assert staged / blocks > 20
-    ck.log_posterior_fused(P, tgt)  # outside a session: no counter
-    assert sum(r.tolist()[0] for r in s.rows.values()) == staged
+    off = ck.log_posterior_fused(P, tgt)  # outside a session: no counter
+    assert [sum(r.tolist()[k] for r in s.rows.values()) for k in (0, 2)] == [staged, blocks]
+    assert _same_bits(on, off)
 
 
 def _fleet(dev):
@@ -167,3 +172,27 @@ def test_k5_v3_ragged_targets(card, dials):
     ref = ck.log_posterior_fleet_fused_reference(coords[:, :13].contiguous(), fleet)
     allowed = 0 if dials == "exact" else int(PROD_OUTSIDE * ref.numel())
     assert _outside(full[:, :13], ref) <= allowed
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("nw", [13, 1029])
+def test_k5_counter_is_the_offline_count(card, nw):
+    """K5's counter on the ragged fleet: each target's row of blocks adds its unions, its
+    walkers' list lengths and its blocks, the sum over targets of the offline count and
+    of ceil(nw / wpb); the values are the same bits with the counter on and off."""
+    import chip_smoke
+
+    fleet, singles, truth = _fleet(card)
+    fleet = dataclasses.replace(fleet, **DIALS["prod"])
+    P = torch.stack([init_walker_batch(t, truth, nw, seed=1 + i)
+                     for i, t in enumerate(singles)])
+    ntgt, nT, nG, nd = fleet.D.shape
+    wpb = ck.staged_block(nd, nT * nG, 1 + fleet.nspec)[0]
+    with profiling.recording() as s:
+        on = ck.log_posterior_fleet_fused(P, fleet)
+    cols = s.columns()
+    counts = [_rows_offline(nz, wpb) for nz in chip_smoke.fleet_wcomb(P, fleet) != 0]
+    assert cols["rows_staged"] == sum(c[0] for c in counts)
+    assert cols["rows_read"] == sum(c[1] for c in counts)
+    assert cols["blocks_staged"] == ntgt * -(-nw // wpb)
+    assert _same_bits(on, ck.log_posterior_fleet_fused(P, fleet))

@@ -338,5 +338,6 @@ def test_span_receipt_runs_on_the_cpu(tmp_path):
     for r in recorded.values():
         assert r["kernel_ms"] is None and r["eval_host_ms"] > 0 and r["late_events"] == 0
         assert r["steps"] == span_receipt.CHUNK * (r["chunks"] + 1)  # and the untimed first
+        assert r["rows_staged"] == r["rows_read"] == r["blocks_staged"] == 0  # no counter
     assert res["stage2"]["kernel_vs_profiler"] is None  # no device time on the CPU
     assert res["costs"] == {} and json.loads(out.read_text())["stage2"]["same_chains"]
