@@ -10,8 +10,9 @@ Phases, each of which exits non-zero on failure:
 1. device: a CUDA card is required; prints its name and power limit;
 2. build: compiles the kernels of ``mcmc_spec_tpu_torch/csrc`` with nvcc;
 3. kernels vs plain: the walkers per block and ptxas lines of the
-   one-warp-per-walker kernels K1, K5 (no spill), K3 and K4 (no barrier),
-   and K6's to K9's (no spill); the
+   one-warp-per-walker kernels K1, K5 (no spill; their registers a thread and
+   their path at each nd, v4's register row up to 1,792 and v3's past it), K3
+   and K4 (no barrier), and K6's to K9's (no spill); the
    fused-posterior (K1) and spectrum-chi^2 (K3) kernels against their plain
    PyTorch versions on the card at both dial sets: 16,384 + 5 walkers on the
    bench target, three small targets, and nd = 1,791 and 4,096 with a ragged
@@ -243,6 +244,7 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -281,6 +283,13 @@ TOTAL_RTOL = 1e-5  # S3's full table totals against the plain ones (phase 10)
 
 class PhaseError(RuntimeError):
     pass
+
+
+def kernel_launches(launches):
+    """The non-zero launch counts of ``launches`` (``ops.cuda_kernels.LAUNCHES`` or a copy)
+    by kernel, without the count of K1's and K5's launches that kept the row in registers
+    (``*_reg_row``), which repeats theirs."""
+    return {k: v for k, v in launches.items() if v and not k.endswith("_reg_row")}
 
 
 def require(cond, msg):
@@ -483,9 +492,11 @@ def warp_kernels_report(tgt):
     """K1, K3, K4 and K5 run one warp per walker: print each kernel's walkers per block at
     the bench shape (K4's and K5's fleet is padded to it) and at LARGE_ND, and its ptxas
     line, which must show no barrier for K3 and K4 (v2, each warp alone) and no spill for
-    K1 and K5 (v3, whose blocks stage the tables behind barriers, with each block's tile
-    buffers); then K6's to K9's ptxas lines (each instantiation, and K8's and K9's segment
-    sum), which must show no spill."""
+    K1 and K5 (whose blocks stage the tables behind barriers, with each block's tile
+    buffers), with K1's and K5's registers a thread and, at each nd of phase 3's K1 gate
+    (ND_EXP_ODD, the bench row, LARGE_ND), the walkers a block ``staged_block`` chose and
+    the path (v4's register row or v3's row in shared memory); then K6's to K9's ptxas
+    lines (each instantiation, and K8's and K9's segment sum), which must show no spill."""
     from mcmc_spec_tpu_torch.ops import cuda_kernels as ck
     from mcmc_spec_tpu_torch.ops import spec_segmented as seg
     from mcmc_spec_tpu_torch.runtime import compare_builds, cuda_build
@@ -499,12 +510,17 @@ def warp_kernels_report(tgt):
                                       ("K5", "log_posterior_fleet_fused_kernel", 1 + tgt.nspec)):
         key = next(k for k in lines if kernel in k)
         line = lines[key]
-        if weight_rows:  # K1, K5 v3
-            blocks = {n: ck.staged_block(n, nT * nG, weight_rows) for n in (nd, seg.LARGE_ND)}
+        if weight_rows:  # K1, K5: v4 (register row) or v3
+            blocks = {n: ck.staged_block(n, nT * nG, weight_rows)
+                      for n in (ND_EXP_ODD, nd, seg.LARGE_ND)}
             sizes = {n: (w, ck.staged_smem_bytes(n, nT * nG, weight_rows, w, st))
                      for n, (w, st) in blocks.items()}
-            detail = ", ".join(f"{w} at nd={n} ({b} bytes of shared memory, tiles of "
-                               f"{blocks[n][1]} floats)" for n, (w, b) in sizes.items())
+            path = lambda n: ("v4 register row" if ck.staged_reg_row(n)
+                              else "v3 row in shared memory")
+            regs = re.search(r"Used (\d+) registers", line)
+            detail = (f"{regs.group(1) if regs else '?'} registers a thread; " + ", ".join(
+                f"{w} at nd={n} ({path(n)}, {b} bytes of shared memory, tiles of "
+                f"{blocks[n][1]} floats)" for n, (w, b) in sizes.items()))
         else:
             sizes = {n: (w, w * ck.warp_smem_bytes(n, nT * nG, weight_rows))
                      for n, w in ((n, ck.walkers_per_block(n, nT * nG, weight_rows))
@@ -605,6 +621,22 @@ def kernels_phase(dev):
             e3 = check_k3(f"nd={nd} {label}", td, Pn, allowed)
             if dials is EXACT:
                 err_k1, err_k3 = max(err_k1, e1), max(err_k3, e3)
+    # K5 past the register row: two targets padded to LARGE_ND run v3's row in shared memory
+    from mcmc_spec_tpu_torch.inference.fleet import stack_targets
+
+    members, trw = [], None
+    for i in range(2):
+        m, trw = build_bench_target(torch.float32, device=dev, nd=LARGE_ND - 48 * i, seed=i,
+                                    pad_nd=LARGE_ND, pad_nc=2)
+        members.append(m)
+    wide = stack_targets(members)
+    P5 = torch.stack([torch.cat([init_walker_batch(m, trw, 1024, seed=8 + i),
+                                 edge_walkers(trw, m)]) for i, m in enumerate(members)])
+    require(not ck.staged_reg_row(wide.D.shape[-1]), "the padded fleet should run K5 v3")
+    for label, dials, allowed in (("exact dials", EXACT, 0),
+                                  ("production dials", PROD, int(PROD_MAX_OUTSIDE_FRAC * 1024))):
+        check_fleet_kernels(f"nd={LARGE_ND} padded fleet {label}",
+                            dataclasses.replace(wide, **dials), P5, allowed)
 
     # times at the bench shapes: one stage-2 half batch; K3 in its stage-1 mode
     # (the bounds are computed for the timed calls' inputs)
@@ -3423,7 +3455,7 @@ def host_modules_checks(dev, smi, fit, walls):
     outdir = os.path.join(fit["root"], "example_out")
     ex = fit_synthetic_binary.main(outdir, noplots=True, device=str(dev), **EXAMPLE_FIT_KW)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+    launches = kernel_launches(ck.LAUNCHES)
     flat = ex.get_chain(flat=True)
     print(f"[example fit_synthetic_binary --noplots] {smi}: {flat.shape[0]} samples, finite "
           f"{bool(np.isfinite(flat).all())}, acceptance {ex.acceptance_fraction[0]:.3f}, launches "
@@ -3515,7 +3547,7 @@ def accuracy_phase(dev, smi, fit):
     from mcmc_spec_tpu_torch.scripts import synth_recovery_matrix as sm
 
     launches, walls = {}, {}
-    nonzero = lambda: {k: v for k, v in ck.LAUNCHES.items() if v}
+    nonzero = lambda: kernel_launches(ck.LAUNCHES)
 
     # (a) the shape sweep of K1, K3, K4 and K5 at the exact dials
     t0 = time.perf_counter()
@@ -3543,7 +3575,7 @@ def accuracy_phase(dev, smi, fit):
           f"{mtb.NBURN}): dL std at k=14 {std14:.4g}, rates (M evals/s) "
           + ", ".join(f"{k}: {r:.2f}" for k, r in out["rate_Mevals"].items())
           + f"; launches {out['launches']} (K1 expected {k1}); {time.perf_counter() - t0:.2f} s")
-    require(out["launches"] == {"log_posterior_fused": k1},
+    require(kernel_launches(out["launches"]) == {"log_posterior_fused": k1},
             f"median_tempering_bound launched {out['launches']}, expected K1 {k1} only")
     require(all(np.isfinite(r["dL_std"]) for r in out["dL"].values()) and 0 < std14 < 1,
             f"median_tempering_bound: dL std at k=14 {std14} not finite in (0, 1)")

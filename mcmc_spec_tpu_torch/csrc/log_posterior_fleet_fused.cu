@@ -1,5 +1,6 @@
 // K5: the whole batched log-posterior of every walker of a stacked, padded
-// fleet, one warp per walker, all targets in one launch (v3).
+// fleet, one warp per walker, all targets in one launch (v4: the walker's model
+// row in registers up to a padded nd of 1,792; v3 wider).
 //
 // Replaces mcmc_spec_tpu/ops/pallas_kernels.py:log_posterior_fleet_fused
 // (body _fleet_posterior_kernel).  Each target has its row of blocks
@@ -10,9 +11,9 @@
 // the target's rows of the stacked [ntgt, ...] tables by offset and its scalars
 // from tscal [ntgt, 5] (tmin, tmax, med_data, 1/n_true, spectrum weight x
 // (nc_true + np_true)) and ranks [ntgt, 2] (the median's 1-based ranks over the
-// true points).  The block's warps run K1's v3 spectrum body
-// (spectrum_stage.cuh) together: the target's tables and the block's union of D
-// rows come from L2 once a block, through shared-memory tiles.  v2 flattened
+// true points).  The block's warps run K1's spectrum body (spectrum_stage.cuh)
+// together: the target's tables and the block's union of D rows come from L2 once
+// a block, through shared-memory tiles.  v2 flattened
 // the fleet's walkers, so a block could span two targets, each warp alone; v1
 // ran one block of 256 threads per walker (posterior_body.cuh).
 //
@@ -45,7 +46,7 @@ __global__ void __launch_bounds__(kStagedWalkersMax * 32, 1)
   const size_t g = (size_t)tgt * nw + min(i, nw - 1);
   const float v = posterior_warp<true, true, true, true, true>(
       a, target_tables(fleet, a, tgt), ts, p + g * a.ndim,
-      dyn + (size_t)warp * warp_smem_floats(a.nd, a.NO, 1 + a.nspec), &sa, i < nw);
+      dyn + (size_t)warp * stage_warp_floats(a.nd, a.NO, 1 + a.nspec), &sa, i < nw);
   if (i < nw && (threadIdx.x & 31) == 0) out[g] = v;
 }
 
@@ -61,8 +62,8 @@ extern "C" int log_posterior_fleet_fused_launch(
     float spectrum_weight, float rad_sigma, void* rows, int stage, int wpb, void* stream) {
   using namespace mcmc_spec;
   if (nspec < 1 || nspec > kMaxSpec || nc > kMaxBands || npf > kMaxBands || ndim > kMaxDim ||
-      ntgt < 1 || ntgt > 65535 || nw < 1 || wpb < 1 || wpb > kStagedWalkersMax || stage % 32 != 0 ||
-      stage < 32 * (NO + 1) || stage < 160)
+      ntgt < 1 || ntgt > 65535 || nw < 1 || wpb < 1 || wpb > kStagedWalkersMax ||
+      !stage_fits(nd, NO, stage))
     return (int)cudaErrorInvalidValue;
   const PosteriorTables t{(const float*)D,        (const float*)kd,        (const float*)data,
                           (const float*)inv_err,  (const float*)VpinvT,    (const float*)VT,

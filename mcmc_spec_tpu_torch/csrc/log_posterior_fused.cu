@@ -1,5 +1,5 @@
 // K1: the whole batched log-posterior of one unpadded target, one warp per
-// walker (v3).
+// walker (v4: the walker's model row in registers up to nd = 1,792; v3 wider).
 //
 // Replaces mcmc_spec_tpu/ops/pallas_kernels.py:log_posterior_fused (body
 // _posterior_kernel).  A block of wpb warps (ops/cuda_kernels.py:staged_block,
@@ -8,7 +8,9 @@
 // with the fleet posterior K5), then the block's warps run the spectrum body of
 // spectrum_stage.cuh together: the target's tables and the block's union of D
 // rows come from L2 once a block, in shared-memory tiles of `stage` floats, two
-// buffers.  The median is the whole row's and the spectrum chi^2 the mean.
+// buffers; each warp's row stays in its lanes' registers (v4) or, past 1,792
+// points, in shared memory (v3).  The median is the whole row's and the spectrum
+// chi^2 the mean.
 // `rows`, where not null, counts the D rows staged, the D rows the walkers
 // read from them and the blocks (the staging counter of ops/cuda_kernels.py).
 #include "posterior_warp.cuh"
@@ -31,7 +33,7 @@ __global__ void __launch_bounds__(kStagedWalkersMax * 32, 1)
   // the block's copies and barriers, and writes nothing
   const float v = posterior_warp<true, true, true, true, true>(
       a, t, ts, p + (size_t)min(b, B - 1) * a.ndim,
-      dyn + (size_t)warp * warp_smem_floats(a.nd, a.NO, 1 + a.nspec), &sa, b < B);
+      dyn + (size_t)warp * stage_warp_floats(a.nd, a.NO, 1 + a.nspec), &sa, b < B);
   if (b < B && (threadIdx.x & 31) == 0) out[b] = v;
 }
 
@@ -48,8 +50,7 @@ extern "C" int log_posterior_fused_launch(
     void* stream) {
   using namespace mcmc_spec;
   if (nspec < 1 || nspec > kMaxSpec || nc > kMaxBands || npf > kMaxBands || ndim > kMaxDim ||
-      wpb < 1 || wpb > kStagedWalkersMax || stage % 32 != 0 || stage < 32 * (NO + 1) ||
-      stage < 160)
+      wpb < 1 || wpb > kStagedWalkersMax || !stage_fits(nd, NO, stage))
     return (int)cudaErrorInvalidValue;
   const PosteriorTables t{(const float*)D,        (const float*)kd,        (const float*)data,
                           (const float*)inv_err,  (const float*)VpinvT,    (const float*)VT,

@@ -1,4 +1,4 @@
-// S13: the fused posterior K1 v3 with its sections switched off, every
+// S13: the fused posterior K1 with its sections switched off, every
 // combination of the four gates: the 2^4 section matrix
 // (mcmc_spec_tpu_torch/scripts/ablate_matrix.py, ablate_matrix_traced.py).
 //
@@ -7,7 +7,8 @@
 // (mcmc_spec_tpu/ops/pallas_kernels.py:801), for each mask of (do_phot,
 // do_priors, do_spectrum, do_w).  The kernel is K1's
 // (log_posterior_fused.cu) over posterior_warp<kPhot, kPriors, kSpectrum, kW>
-// (posterior_warp.cuh) with K1's staged spectrum body, whose gates default to
+// (posterior_warp.cuh) with K1's staged spectrum body (v4's register row at nd <=
+// 1,792, v3 wider), whose gates default to
 // the production body: one
 // instantiation per mask, variant id = 8 P + 4 R + 2 S + W, so id 15 is K1's
 // own code and its output is K1's bit for bit; id 0 is the JAX script's
@@ -15,9 +16,10 @@
 // floor behind K1's signature (the body of scripts/trace_fused_call.py:9-10):
 // K1's arguments, grid, block and dynamic shared memory, and a body that only
 // copies each walker's first parameter to its output.
-// The scope is the JAX variant's, which hard-codes one branch of the
-// posterior: nspec = 2, a fitted parallax with the distance bounds, no radius
-// prior, a non-zero spectrum weight; the launch refuses any other target.
+// The scope is the JAX variant's branch of the posterior, which hard-codes
+// nspec = 2, widened to the triple (nspec 3): a fitted parallax with the
+// distance bounds, no radius prior, a non-zero spectrum weight; the launch
+// refuses any other target.
 // The arguments are K1's (ops/cuda_kernels.posterior_launch_args, then the
 // radius-prior sigma, the counter, the stage and the walkers per block), then
 // the variant id.
@@ -42,7 +44,7 @@ __global__ void __launch_bounds__(kStagedWalkersMax * 32, 1)
   // the block's copies and barriers, and writes nothing
   const float v = posterior_warp<kPhot, kPriors, kSpectrum, kW, true>(
       a, t, ts, p + (size_t)min(b, B - 1) * a.ndim,
-      dyn + (size_t)warp * warp_smem_floats(a.nd, a.NO, 1 + a.nspec), &sa, b < B);
+      dyn + (size_t)warp * stage_warp_floats(a.nd, a.NO, 1 + a.nspec), &sa, b < B);
   if (b < B && (threadIdx.x & 31) == 0) out[b] = v;
 }
 
@@ -87,10 +89,9 @@ extern "C" int posterior_ablate_launch(
       posterior_empty_kernel,
   };
   constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
-  if (variant < 0 || variant >= kNumVariants || nspec != 2 || !fit_plx || !dist_fit ||
-      rad_prior || spectrum_weight == 0.0f || nc > kMaxBands || npf > kMaxBands ||
-      ndim > kMaxDim || wpb < 1 || wpb > kStagedWalkersMax || stage % 32 != 0 ||
-      stage < 32 * (NO + 1) || stage < 160)
+  if (variant < 0 || variant >= kNumVariants || nspec < 2 || nspec > 3 || !fit_plx ||
+      !dist_fit || rad_prior || spectrum_weight == 0.0f || nc > kMaxBands || npf > kMaxBands ||
+      ndim > kMaxDim || wpb < 1 || wpb > kStagedWalkersMax || !stage_fits(nd, NO, stage))
     return (int)cudaErrorInvalidValue;
   const PosteriorTables t{(const float*)D,        (const float*)kd,        (const float*)data,
                           (const float*)inv_err,  (const float*)VpinvT,    (const float*)VT,

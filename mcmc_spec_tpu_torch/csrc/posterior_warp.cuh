@@ -6,7 +6,7 @@
 // and _fleet_posterior_kernel (with _tent_w) for those two kernels.  A warp
 // runs its walker's scalar part alone, with no block barrier (unpack,
 // component scales, MIST logg(T), tent weights -> Wcomb, contrast and
-// photometry magnitudes, priors, bounds), then the spectrum body: v3
+// photometry magnitudes, priors, bounds), then the spectrum body: v3/v4
 // (spectrum_stage.cuh, K1 and K5), whose tables the block's warps read
 // together, or v2 (spectrum_warp.cuh, a warp alone: the experiment S15).  The
 // caller passes the target's tables and scalars: K1 the whole-row median and
@@ -32,7 +32,8 @@ namespace mcmc_spec {
 
 // The log-posterior of the walker pw[ndim]; every lane of the calling warp
 // gets it.  dyn: the warp's slice of dynamic shared memory,
-// warp_smem_floats(nd, NO, 1 + nspec) floats.  kStaged: the spectrum body is v3
+// warp_smem_floats(nd, NO, 1 + nspec) floats (stage_warp_floats with kStaged: no
+// row where v4 keeps it in registers).  kStaged: the spectrum body is v3/v4
 // (spectrum_stage.cuh), which every warp of the block calls with the block's
 // staging area `sa`; `counted` false for a warp that repeats the last walker.
 template <bool kPhot = true, bool kPriors = true, bool kSpectrum = true, bool kW = true,
@@ -40,8 +41,8 @@ template <bool kPhot = true, bool kPriors = true, bool kSpectrum = true, bool kW
 __device__ inline float posterior_warp(const PosteriorConfig& a, const PosteriorTables& t,
                                        const TargetScalars& ts, const float* pw, float* dyn,
                                        const StageArea* sa = nullptr, bool counted = true) {
-  float* row = dyn;                // [nd] model row
-  float* wc = dyn + round4(a.nd);  // [NO] Wcomb
+  float* row = dyn;  // [nd] model row (none for a register row)
+  float* wc = dyn + (kStaged ? stage_row_floats(a.nd) : round4(a.nd));  // [NO] Wcomb
   float* swk = wc + a.NO;          // [nspec, NO] scaled per-component weights
   int* lo = reinterpret_cast<int*>(swk + a.nspec * a.NO);  // [NO] compact list: o
   float* lw = reinterpret_cast<float*>(lo + a.NO);         // [NO] compact list: w

@@ -24,7 +24,9 @@ renorm and the chi^2.  All four run it one warp per walker, over a compact
 list of each walker's non-zero weights: K3 and K4 each warp alone
 (``csrc/spectrum_warp.cuh``, v2), K1 and K5 with the block's warps staging
 the target's tables and their union of grid rows through shared-memory tiles
-(``csrc/spectrum_stage.cuh``, v3, the same arithmetic in the same order); the
+(``csrc/spectrum_stage.cuh``, the same arithmetic in the same order), each
+walker's row in its lanes' registers up to nd = 1,792 (v4, ``staged_reg_row``)
+and in shared memory past it (v3); the
 one-block-per-walker body (``csrc/spectrum_block.cuh``) stays in the
 experiment kernels of ``mcmc_spec_tpu_torch.scripts``.  K1 and K3 take the
 median of the whole row and the mean chi^2; K4 and K5 take per-target median
@@ -40,11 +42,14 @@ Beside each kernel is its plain PyTorch version (``*_reference``): f32, the
 same pack-time dials, the arithmetic of the Pallas kernel, on the same
 operand tables.  A wrapper runs the plain version only when it is given CPU
 tensors; given CUDA tensors it launches the kernel or raises.  ``LAUNCHES``
-counts each wrapper's kernel launches.  The segmented large-nd lane
+counts each wrapper's kernel launches, and K1's and K5's that took v4 apart
+(``*_reg_row``).  The segmented large-nd lane
 (``ops.spec_segmented``, K6-K9) shares this library, its checks and its
 counts, and so do the attribution tools' variants of K1 and K4 at the end of
-this module: S13 ``posterior_ablate`` (K1's sections gated at compile time),
-S14 ``fleet_sections`` (K4's) and S15 ``posterior_pair`` (two walkers a warp).
+this module: S13 ``posterior_ablate`` (K1's sections gated at compile time,
+in a library of its own, ``runtime.cuda_build.LIBRARIES["tools"]``, built at its
+first launch), S14 ``fleet_sections`` (K4's) and S15 ``posterior_pair`` (two
+walkers a warp).
 """
 from __future__ import annotations
 
@@ -84,7 +89,9 @@ LAUNCHES = {"log_posterior_fused": 0, "spectrum_chi2": 0, "spectrum_chi2_fleet":
             "spectrum_chi2_fleet_2d": 0, "trivial_probe": 0, "bisect_probe": 0,
             "bisect2_probe": 0,
             # the attribution tools' kernels (mcmc_spec_tpu_torch.scripts)
-            "posterior_ablate": 0, "fleet_sections": 0, "posterior_pair": 0}
+            "posterior_ablate": 0, "fleet_sections": 0, "posterior_pair": 0,
+            # the launches of K1 and K5 that kept each walker's row in registers (v4)
+            "log_posterior_fused_reg_row": 0, "log_posterior_fleet_fused_reg_row": 0}
 # the dynamic shared memory a Hopper block may opt into (227 KB), less a margin
 # for the kernels' static shared memory: the kernels hold their walkers' model
 # rows of nd floats and blend weights in it
@@ -92,8 +99,15 @@ ROW_SMEM_BYTES = 232448 - 1024
 # walkers (one warp each) a block of K3 or K4 holds at most: kWalkersMax in
 # csrc/spectrum_warp.cuh
 WALKERS_MAX = 8
-# walkers a block of K1 or K5 (v3, csrc/spectrum_stage.cuh) holds at most: kStagedWalkersMax
+# walkers a block of K1 or K5 (csrc/spectrum_stage.cuh) holds at most: kStagedWalkersMax
 WALKERS_MAX_STAGED = 16
+# K1 and K5 v4 keep each walker's row in its lanes' registers, REG_POINTS a lane
+# (kRegPoints), so at nd <= 32 * REG_POINTS; a wider row keeps v3's, in shared memory.
+# v4's build tiles are REG_TILE_POINTS wide (kRegTilePoints); its tail tile holds
+# REG_TAIL_ROWS rows of 32 * REG_POINTS floats (kRegTailRows)
+REG_POINTS = 56
+REG_TILE_POINTS = 448
+REG_TAIL_ROWS = 8
 # an H100 SM's shared memory, and what each resident block reserves of it
 SM_SMEM_BYTES = 233472
 BLOCK_RESERVED_BYTES = 1024
@@ -115,6 +129,20 @@ def warp_smem_bytes(nd: int, NO: int, weight_rows: int) -> int:
     """
     r4 = lambda n: (n + 3) // 4 * 4
     return 4 * (r4(nd) + r4((weight_rows + 2) * NO))
+
+
+def staged_reg_row(nd: int) -> bool:
+    """K1 and K5 keep each walker's row of nd points in registers (v4), ceil(nd / 32) <=
+    ``REG_POINTS`` a lane, or in shared memory (v3): ``stage_reg_row`` in
+    ``csrc/spectrum_stage.cuh``."""
+    return (nd + 31) // 32 <= REG_POINTS
+
+
+def staged_warp_bytes(nd: int, NO: int, weight_rows: int) -> int:
+    """Dynamic shared memory one walker of K1 or K5 holds, in bytes: ``warp_smem_bytes``
+    without the row where it lives in registers (``stage_warp_floats``)."""
+    r4 = lambda n: (n + 3) // 4 * 4
+    return warp_smem_bytes(nd, NO, weight_rows) - (4 * r4(nd) if staged_reg_row(nd) else 0)
 
 
 def warp_max_nd(NO: int, weight_rows: int) -> int:
@@ -150,23 +178,30 @@ def staged_max_nd(NO: int, weight_rows: int) -> int:
 
 
 def staged_smem_bytes(nd: int, NO: int, weight_rows: int, wpb: int, stage: int) -> int:
-    """Dynamic shared memory of a block of K1 or K5 (v3), in bytes: ``wpb`` walkers'
-    ``warp_smem_bytes``, the block's union of grid rows (the NO-bit mask, the slot map
+    """Dynamic shared memory of a block of K1 or K5, in bytes: ``wpb`` walkers'
+    ``staged_warp_bytes``, the block's union of grid rows (the NO-bit mask, the slot map
     and the list lengths' sum, each part padded to 16 bytes) and two tile buffers of
     ``stage`` floats: ``staged_smem_floats`` in ``csrc/spectrum_stage.cuh``."""
     r4 = lambda n: (n + 3) // 4 * 4
     union = r4((NO + 31) // 32) + r4(NO) + 4
-    return wpb * warp_smem_bytes(nd, NO, weight_rows) + 4 * (union + 2 * stage)
+    return wpb * staged_warp_bytes(nd, NO, weight_rows) + 4 * (union + 2 * stage)
 
 
 def stage_floats(nd: int, NO: int, weight_rows: int, wpb: int) -> tuple:
-    """(blocks an SM holds, ``stage``) of K1 or K5 (v3) at ``wpb`` walkers a block: the
-    most blocks whose tile buffers still take a build tile of 32 points of every grid
-    row and kd (``stage`` >= 32 (NO + 1) floats), and the largest ``stage``, a multiple
-    of 32 floats, that so many blocks leave, at most one tile of the whole row of every
-    grid row.  (0, 0) where not one block fits."""
-    floor = 32 * (NO + 1)
-    cap = (NO + 1) * ((nd + 31) // 32 * 32)
+    """(blocks an SM holds, ``stage``) of K1 or K5 at ``wpb`` walkers a block: the most
+    blocks whose tile buffers still take the smallest tiles, and the largest ``stage``, a
+    multiple of 32 floats, that so many blocks leave.  v4 (``staged_reg_row``): ``stage``
+    >= the tail tile, ``REG_TAIL_ROWS`` rows of 32 ``REG_POINTS`` floats, and at most a
+    build tile of every grid row and kd, (NO + 1) ``REG_TILE_POINTS`` (or the tail tile);
+    v3: ``stage`` >= a build tile of 32 points of every grid row and kd, 32 (NO + 1),
+    and at most one tile of the whole row of every grid row.  (0, 0) where not one block
+    fits (``stage_fits`` in ``csrc/spectrum_stage.cuh``)."""
+    if staged_reg_row(nd):
+        floor = REG_TAIL_ROWS * 32 * REG_POINTS
+        cap = max(floor, (NO + 1) * REG_TILE_POINTS)
+    else:
+        floor = 32 * (NO + 1)
+        cap = (NO + 1) * ((nd + 31) // 32 * 32)
     base = staged_smem_bytes(nd, NO, weight_rows, wpb, 0)
     per_sm = SM_SMEM_BYTES // (base + 8 * floor + BLOCK_RESERVED_BYTES)
     room = min(SM_SMEM_BYTES // max(per_sm, 1) - BLOCK_RESERVED_BYTES, ROW_SMEM_BYTES) - base
@@ -177,12 +212,13 @@ def stage_floats(nd: int, NO: int, weight_rows: int, wpb: int) -> tuple:
 
 @functools.lru_cache(maxsize=64)  # every launch of K1 and K5 asks
 def staged_block(nd: int, NO: int, weight_rows: int, requested=None) -> tuple:
-    """(walkers a block, ``stage``) of K1 or K5 (v3), ``stage`` from ``stage_floats``.
+    """(walkers a block, ``stage``) of K1 or K5, ``stage`` from ``stage_floats``.
 
     ``requested`` None: the largest block, up to ``WALKERS_MAX_STAGED`` walkers, whose
-    rows leave room for the tile buffers: the more walkers a block holds, the more of
+    slices leave room for the tile buffers: the more walkers a block holds, the more of
     them share each staged row (on an H100 at the koi2298 shapes, 16 walkers, one block
-    an SM, ran K1 the fastest of 4 to 16 and K5 within 1 % of it).  Else ``requested``,
+    an SM, ran K1 v3 the fastest of 4 to 16 and K5 v3 within 1 % of it; v4 takes 16 at
+    nd <= 1,792, where registers, 128 a thread, hold an SM to one block of 16).  Else ``requested``,
     which must lie in 1 .. ``WALKERS_MAX_STAGED`` and fit (``ValueError`` otherwise).
     ``weight_rows`` as in ``warp_smem_bytes``."""
     if requested is not None:
@@ -484,13 +520,18 @@ _SIGNATURES = {
 }
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    lib = cuda_build.load()
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+# the functions of the attribution tools' library (``cuda_build.LIBRARIES["tools"]``)
+_TOOL_FUNCTIONS = ("posterior_ablate_launch",)
+
+
+@functools.lru_cache(maxsize=2)
+def _lib(name: str = "kernels"):
+    lib = cuda_build.load(name)
+    for fn_name, argtypes in _SIGNATURES.items():
+        if (fn_name in _TOOL_FUNCTIONS) == (name == "tools"):
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -505,7 +546,7 @@ def _launch(fn_name: str, counter: str, *args):
     """Call the library's ``fn_name`` and count it in ``LAUNCHES[counter]``; the ctypes
     call is the ``launch:<counter>`` span of ``utils.profiling``, with device events at
     its open and close, while that records."""
-    fn = getattr(_lib(), fn_name)
+    fn = getattr(_lib("tools" if fn_name in _TOOL_FUNCTIONS else "kernels"), fn_name)
     i = (profiling.open_span("launch:" + counter, profiling.OPEN | profiling.CLOSE)
          if profiling.ON else -1)
     rc = fn(*args)
@@ -807,6 +848,8 @@ def log_posterior_fused(p, tgt, walkers_per_block=None):
     if args:
         _launch("log_posterior_fused_launch", "log_posterior_fused", *args,
                 float(tgt.rad_sigma_frac), _rows_ptr(p.device), stage, wpb, _stream(p.device))
+        if staged_reg_row(nd):
+            LAUNCHES["log_posterior_fused_reg_row"] += 1
     return out
 
 
@@ -988,6 +1031,8 @@ def log_posterior_fleet_fused(params, fleet):
             args = args[:-3] + (rows,) + args[-2:]
         _launch("log_posterior_fleet_fused_launch", "log_posterior_fleet_fused", *args,
                 _stream(params.device))
+        if staged_reg_row(fleet.D.shape[-1]):
+            LAUNCHES["log_posterior_fleet_fused_reg_row"] += 1
     return out
 
 
@@ -1043,6 +1088,8 @@ def fleet_posterior_launch_args(params, fleet):
 ABLATE_MASKS = tuple("".join("1" if b else "0" for b in bits)
                      for bits in itertools.product((True, False), repeat=4))
 ABLATE_VARIANTS = ABLATE_MASKS + ("empty",)
+# the component counts S13 takes: the JAX variant's binary, and the triple
+ABLATE_NSPECS = (2, 3)
 # S14's modes, in the order of scripts/trace_fleet_step.py, then K4 with its median
 # ranks compile-time constants (scripts/try_fleet_block.py)
 FLEET_SECTION_MODES = ("full", "no_matmul", "no_extinct", "no_median", "no_renorm", "empty",
@@ -1050,17 +1097,19 @@ FLEET_SECTION_MODES = ("full", "no_matmul", "no_extinct", "no_median", "no_renor
 FROZEN_ND = 1792  # scalar_rank's n_true: kFrozenNd in csrc/fleet_sections.cu
 
 
-def section_scope(tgt, kernel: str) -> None:
+def section_scope(tgt, kernel: str, nspecs=(2,)) -> None:
     """The branch of the posterior that the JAX section variants hard-code (a binary with
-    a fitted parallax, the distance bounds, no radius prior and a spectrum), or
-    ``ValueError`` naming ``kernel``."""
-    bad = [why for why, off in (("nspec != 2", tgt.nspec != 2),
+    a fitted parallax, the distance bounds, no radius prior and a spectrum), with the
+    component counts ``nspecs`` (S13 takes the triple too), or ``ValueError`` naming
+    ``kernel``."""
+    stars = " or ".join({2: "a binary", 3: "a triple"}[n] for n in nspecs)
+    bad = [why for why, off in ((f"nspec {tgt.nspec}", tgt.nspec not in nspecs),
                                 ("no fitted parallax", not tgt.fit_plx),
                                 ("no distance bounds", not tgt.dist_fit),
                                 ("a radius prior", tgt.rad_prior),
                                 ("spectrum weight 0", tgt.spectrum_weight == 0.0)) if off]
     if bad:
-        raise ValueError(f"{kernel} covers a binary with a fitted parallax, distance bounds, "
+        raise ValueError(f"{kernel} covers {stars} with a fitted parallax, distance bounds, "
                          "no radius prior and a spectrum: this target has " + ", ".join(bad))
 
 
@@ -1075,7 +1124,7 @@ def posterior_ablate_reference(p, tgt, variant):
     """Plain PyTorch version of ``posterior_ablate`` ([B] f32): ``_posterior_plain`` with
     the mask's sections stubbed; ``empty`` each walker's first parameter."""
     _ablate_id(variant)
-    section_scope(tgt, "posterior_ablate")
+    section_scope(tgt, "posterior_ablate", ABLATE_NSPECS)
     iters, _, recip = resolve_dials(tgt)
     p = p.to(device=tgt.device, dtype=_F32)
     if variant == "empty":
@@ -1087,11 +1136,11 @@ def posterior_ablate_reference(p, tgt, variant):
 
 
 def posterior_ablate(p, tgt, variant):
-    """S13: K1 v3 over walkers ``p`` [B, ndim] with the sections of the mask ``variant``
+    """S13: K1 over walkers ``p`` [B, ndim] with the sections of the mask ``variant``
     ("PRSW", ``ABLATE_MASKS``) stubbed, or the launch floor ``empty`` ([B] f32);
     "1111" is ``log_posterior_fused`` bit for bit."""
     vid = _ablate_id(variant)
-    section_scope(tgt, "posterior_ablate")
+    section_scope(tgt, "posterior_ablate", ABLATE_NSPECS)
     resolve_dials(tgt)
     if p.device.type == "cpu":
         return posterior_ablate_reference(p, tgt, variant)

@@ -64,20 +64,26 @@ def sass(dump: str) -> dict:
     return out
 
 
-def build(checkout: Path) -> Path:
-    """The kernel library of ``checkout``, built by that checkout's own ``cuda_build``."""
-    code = "from mcmc_spec_tpu_torch.runtime import cuda_build; print(cuda_build.build())"
+def build(checkout: Path) -> list:
+    """The kernel libraries of ``checkout``, each built by that checkout's own
+    ``cuda_build``: the kernels' and, where it has one, the attribution tools'."""
+    code = ("from mcmc_spec_tpu_torch.runtime import cuda_build as c; print(c.build()); "
+            "[print(c.build(n)) for n in getattr(c, 'LIBRARIES', ()) if n != 'kernels']")
     proc = subprocess.run([sys.executable, "-c", code], cwd=checkout, capture_output=True,
                           text=True, check=True)
-    return Path(proc.stdout.strip().splitlines()[-1])
+    return [Path(line) for line in proc.stdout.split() if line.endswith(".so")]
 
 
-def describe(lib: Path) -> tuple:
-    """(ptxas lines, SASS) of a built library."""
+def describe(libs) -> tuple:
+    """(ptxas lines, SASS) of the kernels of built libraries."""
     cuobjdump = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
-    dump = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    return ptxas_lines(lib.with_suffix(".log").read_text()), sass(dump)
+    lines, code = {}, {}
+    for lib in libs:
+        dump = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+        lines.update(ptxas_lines(lib.with_suffix(".log").read_text()))
+        code.update(sass(dump))
+    return lines, code
 
 
 def base_name(mangled: str) -> str:

@@ -2,7 +2,10 @@
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface, loaded with ``ctypes``: one ``nvcc``
-per source, all started together, then one link.  The build goes to
+per source, all started together, then one link.  The attribution tool S13
+(``posterior_ablate.cu``: sixteen instantiations of K1's body) is a second
+library, built at its first launch, so that the kernels' library builds
+without it.  The build goes to
 ``mcmc_spec_tpu_torch/build/`` by default and is keyed on a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one is reused.  There
 is no fallback: a missing ``nvcc`` or a failed build raises.
@@ -35,8 +38,9 @@ SOURCES = ("log_posterior_fused.cu", "spectrum_chi2.cu", "spectrum_chi2_fleet.cu
            "log_posterior_fleet_fused.cu", "model_extinct.cu", "median_kary.cu",
            "segmented_stats.cu", "microbench.cu", "spectrum_recip.cu", "posterior_transposed.cu",
            "median_adaptive.cu", "median_packed.cu", "spectrum_overlap.cu", "fleet_grid_order.cu",
-           "launch_probe.cu", "median_rounds.cu", "posterior_ablate.cu", "fleet_sections.cu",
-           "posterior_pair.cu")
+           "launch_probe.cu", "median_rounds.cu", "fleet_sections.cu", "posterior_pair.cu")
+# the sources of each library by its name: the kernels', and the attribution tools'
+LIBRARIES = {"kernels": SOURCES, "tools": ("posterior_ablate.cu",)}
 HEADERS = ("block_common.cuh", "spectrum_block.cuh", "posterior_body.cuh",
            "spectrum_warp.cuh", "posterior_warp.cuh", "spectrum_stage.cuh")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
@@ -108,23 +112,24 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(name: str = "kernels") -> Path:
+    """Where the library ``name`` (``LIBRARIES``) for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    return build_dir() / f"libmcmc_spec_kernels_{h.hexdigest()[:16]}.so"
+    for src in LIBRARIES[name] + HEADERS:
+        h.update(src.encode())
+        h.update((CSRC / src).read_bytes())
+    return build_dir() / f"libmcmc_spec_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists; return its path.
+def build(name: str = "kernels") -> Path:
+    """Compile the library ``name`` (``LIBRARIES``) unless one for these sources exists;
+    return its path.
 
     Each source compiles in its own ``nvcc`` process, all at once; the
     objects are then linked into the library.  The compilers' output (ptxas
     resource usage included) is kept beside the library as ``<name>.log``.
     """
-    lib = library_path()
+    lib = library_path(name)
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
@@ -132,9 +137,10 @@ def build() -> Path:
     # pid-tagged objects and an atomic rename of the library: ranks that share a cold
     # directory each build their own and the last rename wins
     tag = f"{lib.stem}.{os.getpid()}"
-    objs = [lib.parent / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
+    sources = LIBRARIES[name]
+    objs = [lib.parent / f"{tag}.{Path(src).stem}.o" for src in sources]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
-            for src, obj in zip(SOURCES, objs)]
+            for src, obj in zip(sources, objs)]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
     outs = [proc.communicate()[0] for proc in procs]
@@ -160,11 +166,11 @@ def build() -> Path:
     return lib
 
 
-@functools.lru_cache(maxsize=1)
-def load() -> ctypes.CDLL:
-    """The kernel library, built if needed and loaded once per process."""
+@functools.lru_cache(maxsize=2)
+def load(name: str = "kernels") -> ctypes.CDLL:
+    """The library ``name`` (``LIBRARIES``), built if needed and loaded once per process."""
     global _chosen, _loaded
-    lib = build()
+    lib = build(name)
     handle = ctypes.CDLL(str(lib))
     _chosen = _loaded = lib.parent  # the process keeps this directory from now on
     return handle

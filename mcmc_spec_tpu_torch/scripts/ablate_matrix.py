@@ -1,7 +1,7 @@
-"""The full 2^4 section matrix of the fused posterior K1 v3 on the card
+"""The full 2^4 section matrix of the fused posterior K1 on the card
 (counterpart of ``scripts/ablate_matrix.py``).
 
-S13 ``posterior_ablate`` (``csrc/posterior_ablate.cu``) is K1 v3 with each
+S13 ``posterior_ablate`` (``csrc/posterior_ablate.cu``) is K1 with each
 combination of four sections stubbed at compile time, as
 ``scripts/ablate_fused_sections.py:variant_kernel`` stubs them: the contrast and
 photometry magnitudes (P), the priors and bounds (R), the spectrum block (S) and
@@ -9,7 +9,8 @@ the blend-weight construction (W).  A mask is written ``PRSW``: ``1111`` is K1,
 ``0000`` every section stubbed.  Every mask is checked on 512 walkers (``1111``
 bit for bit K1, every other mask different from it, the JAX script's
 per-variant assertions) and timed with CUDA events at the production shape:
-32,768 walkers on the bench target, nd = 1,792, dials (14, 3, 2).
+32,768 walkers on the bench target, nd = 1,792, dials (14, 3, 2): the binary, or the
+triple (``--nspec 3``: the bench target's third star, 12 D rows a walker).
 
 Then the inclusion-exclusion fit over the 4-bit lattice (its Moebius transform,
 exact for 16 points): ``t(mask) = sum over the subsets T of the mask's sections
@@ -20,14 +21,15 @@ point, so wherever the spectrum is on its row build reads all 56 D rows where
 production reads at most 8: a mask without W prices a dense build.  The script
 prints the production list's length beside it: the mean and largest count of
 non-zero blend weights a walker (the D rows K1 reads for it), and the mean count of
-distinct D rows a block of K1's walkers holds (U, the rows K1 v3 stages once a block)
+distinct D rows a block of K1's walkers holds (U, the rows K1 stages once a block)
 with the share of the walkers' D-row reads that are staged rows (the offline
 counterpart of the staging counter, ``rows_staged / rows_read``).
 
-    python -m mcmc_spec_tpu_torch.scripts.ablate_matrix
+    python -m mcmc_spec_tpu_torch.scripts.ablate_matrix [--nspec 3]
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import itertools
 import json
@@ -47,9 +49,11 @@ GATES = ("phot", "priors", "spectrum", "W")
 MASKS = ck.ABLATE_MASKS
 
 
-def prepare(dev, nwalk=NWALK, nd=ND, grid_step=1.0):
-    """(target at the production dials, walkers) on ``dev``."""
-    tgt, truth = build_bench_target(torch.float32, device=dev, nd=nd, grid_step=grid_step)
+def prepare(dev, nwalk=NWALK, nd=ND, grid_step=1.0, nspec=2):
+    """(target at the production dials, walkers) on ``dev``: the binary bench target, or
+    its triple at ``nspec`` 3."""
+    tgt, truth = build_bench_target(torch.float32, device=dev, nd=nd, grid_step=grid_step,
+                                    nspec=nspec)
     tgt = dataclasses.replace(tgt, **DIALS)
     return tgt, init_walker_batch(tgt, truth, nwalk)
 
@@ -74,7 +78,7 @@ def row_list(tgt, coords, wpb=None) -> tuple:
     """(mean, largest, union, share) on the walkers ``coords`` (any state): the mean and
     largest count of non-zero blend weights a walker, the length of the compact list
     over which K1 builds its model row, the D rows it reads; the mean count of distinct
-    grid rows a block of ``wpb`` walkers holds (U, the D rows K1 v3 stages once a block;
+    grid rows a block of ``wpb`` walkers holds (U, the D rows K1 stages once a block;
     ``ck.staged_block``'s walkers a block where None), the walkers in K1's order with the
     last block's missing warps repeating the last walker, as the kernel's do; and the sum
     of U over the sum of the lists (``rows_staged / rows_read``)."""
@@ -142,11 +146,18 @@ def report(t: dict, unit: str = "ms") -> tuple:
     return terms, marg
 
 
-def main(device="cuda", nwalk=NWALK, nd=ND, grid_step=1.0):
+def parse_nspec(argv=None) -> int:
+    """The ``--nspec`` of the command line (2, the binary, where it is left out)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--nspec", type=int, choices=ck.ABLATE_NSPECS, default=2)
+    return ap.parse_args(argv).nspec
+
+
+def main(device="cuda", nwalk=NWALK, nd=ND, grid_step=1.0, nspec=2):
     dev = resolve_device(device)
     time_fn = timer(dev)
-    print(f"[env] {describe(dev)}", flush=True)
-    tgt, coords = prepare(dev, nwalk, nd, grid_step)
+    print(f"[env] {describe(dev)}; nspec {nspec}", flush=True)
+    tgt, coords = prepare(dev, nwalk, nd, grid_step, nspec)
     check_masks(tgt, coords)
     t = {}
     for mask in MASKS:
@@ -157,10 +168,10 @@ def main(device="cuda", nwalk=NWALK, nd=ND, grid_step=1.0):
     mean, most, union, share = row_list(tgt, coords)
     print(f"\nproduction row list: {mean:.4f} non-zero blend weights a walker on average, "
           f"{most} at most, of {tgt.D.shape[0] * tgt.D.shape[1]} (the stubbed W weights all); "
-          f"{union:.4f} distinct D rows a block of K1 v3 on average, staged rows / rows read "
+          f"{union:.4f} distinct D rows a block of K1 on average, staged rows / rows read "
           f"{share:.4f}", flush=True)
     return {"ms": t, "terms": terms, "marginal": marg, "row_list": (mean, most, union, share)}
 
 
 if __name__ == "__main__":
-    main()
+    main(nspec=parse_nspec())

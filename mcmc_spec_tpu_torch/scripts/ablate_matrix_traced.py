@@ -1,4 +1,4 @@
-"""The 2^4 section matrix of K1 v2 timed by device time (counterpart of
+"""The 2^4 section matrix of K1 timed by device time (counterpart of
 ``scripts/ablate_matrix_traced.py``).
 
 The masks of ``ablate_matrix`` (S13 ``posterior_ablate``, checked as there),
@@ -12,7 +12,7 @@ section's marginal device cost in each context of the other three, with the
 inclusion-exclusion terms of ``ablate_matrix``.  On the CPU the trace holds no
 device time: the rows say so and nothing is fitted.
 
-    python -m mcmc_spec_tpu_torch.scripts.ablate_matrix_traced
+    python -m mcmc_spec_tpu_torch.scripts.ablate_matrix_traced [--nspec 3]
 """
 from __future__ import annotations
 
@@ -29,10 +29,10 @@ N_LAUNCHES = 20
 KERNEL = "posterior_ablate_kernel"
 
 
-def main(device="cuda", nwalk=NWALK, nd=ND, grid_step=1.0):
+def main(device="cuda", nwalk=NWALK, nd=ND, grid_step=1.0, nspec=2):
     dev = resolve_device(device)
-    print(f"[env] {describe(dev)}", flush=True)
-    tgt, coords = am.prepare(dev, nwalk, nd, grid_step)
+    print(f"[env] {describe(dev)}; nspec {nspec}", flush=True)
+    tgt, coords = am.prepare(dev, nwalk, nd, grid_step, nspec)
     am.check_masks(tgt, coords)
     t, rows = {}, {}
     for mask in am.MASKS:
@@ -57,4 +57,4 @@ def main(device="cuda", nwalk=NWALK, nd=ND, grid_step=1.0):
 
 
 if __name__ == "__main__":
-    main()
+    main(nspec=am.parse_nspec())

@@ -56,7 +56,7 @@ def sampler_rate(tgt, coords, wpb, n_steps=NSTEPS):
 
 
 def fitting_blocks(nd: int, NO: int, weight_rows: int) -> list:
-    """The walkers-per-block counts of K1 v3 whose shared memory a block admits."""
+    """The walkers-per-block counts of K1 whose shared memory a block admits."""
     return [w for w in range(1, ck.WALKERS_MAX_STAGED + 1)
             if ck.stage_floats(nd, NO, weight_rows, w)[0] > 0]
 

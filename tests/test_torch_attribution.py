@@ -118,9 +118,9 @@ def test_posterior_ablate_masks_ids_and_floor():
     np.testing.assert_array_equal(ck.posterior_ablate(P, tt, "empty").numpy(), P[:, 0].numpy())
 
 
-@pytest.mark.parametrize("kw", [dict(nspec=3), dict(rad_prior=True), dict(fit_plx=False),
+@pytest.mark.parametrize("kw", [dict(nspec=1), dict(rad_prior=True), dict(fit_plx=False),
                                 dict(dist_fit=False), dict(spectrum_weight=0.0)],
-                         ids=["nspec3", "rad_prior", "no_plx", "no_dist_fit", "nospec"])
+                         ids=["nspec1", "rad_prior", "no_plx", "no_dist_fit", "nospec"])
 def test_posterior_ablate_rejects_out_of_scope_targets(kw):
     jt, tt = _binary_target(EXACT)
     tt = dataclasses.replace(tt, **kw)
@@ -130,6 +130,29 @@ def test_posterior_ablate_rejects_out_of_scope_targets(kw):
             fn(P, tt, "1111")
     with pytest.raises(ValueError, match="unknown variant"):
         ck.posterior_ablate(P, tt, "111")
+
+
+@pytest.mark.parametrize("dials", ["exact", "fast"])
+def test_posterior_ablate_takes_the_triple(dials):
+    """S13 covers the triple (nspec 3) beside the JAX variant's binary: its plain
+    version's 1111 is K1's, every other mask differs from it, and ``empty`` copies each
+    walker's first parameter; the scripts' ``--nspec`` chooses it."""
+    from mcmc_spec_tpu_torch.bench_target import build_bench_target, init_walker_batch
+
+    tt, truth = build_bench_target(torch.float32, device="cpu", nd=96, grid_step=8.0, nspec=3)
+    tt = dataclasses.replace(tt, **DIALS[dials])
+    P = init_walker_batch(tt, truth, 9, seed=3)
+    full = ck.log_posterior_fused_reference(P, tt).numpy()
+    for mask in ck.ABLATE_MASKS:
+        got = ck.posterior_ablate(P, tt, mask).numpy()
+        if mask == "1111":
+            np.testing.assert_array_equal(got, full)
+        else:
+            assert not np.allclose(got, full, equal_nan=True)
+    np.testing.assert_array_equal(ck.posterior_ablate(P, tt, "empty").numpy(), P[:, 0].numpy())
+    assert ablate_matrix.parse_nspec(["--nspec", "3"]) == 3 and ablate_matrix.parse_nspec([]) == 2
+    with pytest.raises(SystemExit):
+        ablate_matrix.parse_nspec(["--nspec", "4"])
 
 
 def test_ablate_matrix_moebius_terms_sum_back():
@@ -332,7 +355,9 @@ def test_launch_signatures_match_the_sources(name, counts):
     assert ck._SIGNATURES[name] == ([ck._P] * pointers + [ck._I] * ints + [ck._F] * floats
                                     + [{"P": ck._P, "I": ck._I}[c] for c in tail] + [ck._P])
     for src in ("posterior_ablate.cu", "fleet_sections.cu", "posterior_pair.cu"):
-        assert src in cuda_build.SOURCES and (cuda_build.CSRC / src).is_file()
+        lib = "tools" if src == "posterior_ablate.cu" else "kernels"
+        assert src in cuda_build.LIBRARIES[lib] and (cuda_build.CSRC / src).is_file()
+    assert (name in ck._TOOL_FUNCTIONS) == (name == "posterior_ablate_launch")
 
 
 def test_gates_default_to_the_production_body():

@@ -70,6 +70,22 @@ def test_named_directory_builds_there_once(fake_nvcc, tmp_path, monkeypatch):
     assert cuda_build.build() == lib and fake_nvcc() == n
 
 
+def test_tools_library_builds_apart_at_its_first_use(fake_nvcc, tmp_path, monkeypatch):
+    """S13's source is the attribution tools' library alone: building the kernels' library
+    runs no nvcc on it, and the tools' library, beside it, one nvcc and the link."""
+    monkeypatch.setenv("MCMC_SPEC_COMPILE_CACHE", str(tmp_path / "k"))
+    tools = cuda_build.LIBRARIES["tools"]
+    assert tools == ("posterior_ablate.cu",) and not set(tools) & set(cuda_build.SOURCES)
+    lib = cuda_build.build()
+    n = fake_nvcc()
+    assert n == len(cuda_build.SOURCES) + 1
+    assert "posterior_ablate.cu" not in (tmp_path / "nvcc_calls.txt").read_text()
+    other = cuda_build.build("tools")
+    assert other.parent == lib.parent and other.name.startswith("libmcmc_spec_tools_")
+    assert other != lib and fake_nvcc() == n + len(tools) + 1
+    assert cuda_build.build("tools") == other and fake_nvcc() == n + len(tools) + 1
+
+
 def test_path_argument_stands_in_for_the_variable(fake_nvcc, tmp_path, monkeypatch):
     monkeypatch.delenv("MCMC_SPEC_COMPILE_CACHE", raising=False)
     assert flags.enable_persistent_compile_cache(str(tmp_path / "mine")) == str(tmp_path / "mine")

@@ -73,7 +73,7 @@ def _wcomb(P, fleet):
 
 def _c_signature(name):
     """The ctypes argument types of the C launch function ``name`` in ``csrc/``."""
-    for src in cuda_build.SOURCES:
+    for src in sum(cuda_build.LIBRARIES.values(), ()):
         text = (cuda_build.CSRC / src).read_text()
         m = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
         if m:

@@ -4,8 +4,9 @@
   spectrum-chi^2 kernel K3 (and K1's v2 body in S15) holds, from the shared
   memory one walker needs (``warp_smem_bytes``, the twin of
   ``warp_smem_floats`` in ``csrc/spectrum_warp.cuh``); ``staged_block``, the
-  walkers and tile buffers of a block of K1 and K5 v3 (``staged_smem_bytes``,
-  the twin of ``staged_smem_floats`` in ``csrc/spectrum_stage.cuh``).
+  walkers and tile buffers of a block of K1 and K5 (``staged_smem_bytes``,
+  the twin of ``staged_smem_floats`` in ``csrc/spectrum_stage.cuh``), v4's
+  (each row in registers, nd <= 1,792) and v3's (each row in shared memory).
 * The ``matmul_passes`` receipt: the port computes the full f32 ``Wcomb @ D``
   at every dial; K1's plain version at the production dials (14, 3, 2)
   against the JAX kernel in interpret mode at (14, 3, 2), whose split-bf16
@@ -81,27 +82,39 @@ def test_warp_smem_bytes_mirrors_the_header():
 
 
 # ---------------------------------------------------------------------------
-# K1 and K5 v3: the block's layout (csrc/spectrum_stage.cuh)
+# K1 and K5 v3/v4: the block's layout (csrc/spectrum_stage.cuh)
+
+
+def _stage_bounds(nd, rows):
+    """(least, most) ``stage`` of a block: v4's tail tile and its build tile of every grid
+    row and kd; v3's build tile of 32 points of every row and kd and its tile of the whole
+    row of every row."""
+    if ck.staged_reg_row(nd):
+        least = ck.REG_TAIL_ROWS * 32 * ck.REG_POINTS
+        return least, max(least, (NO + 1) * ck.REG_TILE_POINTS)
+    return 32 * (NO + 1), (NO + 1) * ((nd + 31) // 32 * 32)
 
 
 def test_staged_smem_bytes_mirrors_the_header():
     """``staged_smem_bytes`` is the header's ``staged_smem_floats`` times 4: the warps'
-    slices, the union (mask, slot map, list lengths) and two tile buffers; K1, K5 and
-    S13 size their blocks with it and take the counter, the tile size and the walkers a
-    block last, before the stream."""
+    slices (without the row for v4), the union (mask, slot map, list lengths) and two
+    tile buffers; K1, K5 and S13 size their blocks with it and take the counter, the
+    tile size and the walkers a block last, before the stream."""
     src = (cuda_build.CSRC / "spectrum_stage.cuh").read_text()
     floats = re.search(r"staged_smem_floats\(int nd, int NO, int weight_rows, int wpb,\s*"
                        r"int stage\) \{\s*return ([^;]+);", src)
     assert floats and " ".join(floats.group(1).split()) == (
-        "wpb * warp_smem_floats(nd, NO, weight_rows) + stage_union_words(NO) + 2 * stage")
+        "wpb * stage_warp_floats(nd, NO, weight_rows) + stage_union_words(NO) + 2 * stage")
     union = re.search(r"stage_union_words\(int NO\) \{\s*return ([^;]+);", src)
     assert union and union.group(1) == "round4((NO + 31) / 32) + round4(NO) + 4"
     assert "spectrum_stage.cuh" in cuda_build.HEADERS
     assert re.search(r"kStagedWalkersMax = (\d+);", src).group(1) == str(ck.WALKERS_MAX_STAGED)
     for nd, rows, wpb, stage in ((1792, 3, 16, 12320), (401, 4, 3, 960), (4096, 3, 12, 2624)):
         union_words = (1 + 3) // 4 * 4 + (NO + 3) // 4 * 4 + 4  # NO = 56: two mask words
+        row = 0 if ck.staged_reg_row(nd) else (nd + 3) // 4 * 4
+        assert ck.staged_warp_bytes(nd, NO, rows) == 4 * (row + ((rows + 2) * NO + 3) // 4 * 4)
         assert ck.staged_smem_bytes(nd, NO, rows, wpb, stage) == (
-            wpb * ck.warp_smem_bytes(nd, NO, rows) + 4 * (union_words + 2 * stage))
+            wpb * ck.staged_warp_bytes(nd, NO, rows) + 4 * (union_words + 2 * stage))
     for kernel in ("log_posterior_fused.cu", "log_posterior_fleet_fused.cu", "posterior_ablate.cu"):
         assert "staged_smem_floats(nd, NO, 1 + nspec, wpb, stage)" in (
             cuda_build.CSRC / kernel).read_text()
@@ -110,11 +123,12 @@ def test_staged_smem_bytes_mirrors_the_header():
 
 
 def test_staged_block_at_the_main_path_shapes():
-    """16 walkers a block, one block an SM, at the bench row (both cells' nd); 12 at
-    nd = 4,096 (the largest row the dispatch gives K1); each with the rest of the block's
-    shared memory in its two tile buffers."""
-    assert ck.staged_block(1792, NO, 3) == (16, 12320)
-    assert ck.staged_block(1792, NO, 4) == (16, 11872)
+    """16 walkers a block, one block an SM, at the bench row (the cells' nd, v4: each
+    buffer a build tile of all 56 grid rows and kd); 12 at nd = 4,096 (the largest row the
+    dispatch gives K1, v3), with the rest of the block's shared memory in its two tile
+    buffers."""
+    assert ck.staged_block(1792, NO, 3) == (16, 25536)
+    assert ck.staged_block(1792, NO, 4) == (16, 25536)
     assert ck.staged_block(4096, NO, 3) == (12, 2624)
     for nd, rows in ((1792, 3), (4096, 3)):
         wpb, stage = ck.staged_block(nd, NO, rows)
@@ -125,15 +139,17 @@ def test_staged_block_at_the_main_path_shapes():
 @pytest.mark.parametrize("rows", [3, 4])
 @pytest.mark.parametrize("nd", [96, 400, 401, 1791, 1792, 4096, 8000])
 def test_staged_block_is_the_largest_that_fits(nd, rows):
-    """The block's tile buffers take a build tile of 32 points of every grid row and kd
-    and a tail tile of 5 rows; a block of one walker more would not fit; the tiles'
-    size is a multiple of 32 floats and at most one tile of the whole row of every row."""
+    """The block's tile buffers take its smallest tiles (v4: the tail tile; v3: a build
+    tile of 32 points of every grid row and kd and a tail tile of 5 rows); a block of one
+    walker more would not fit; the tiles' size is a multiple of 32 floats and at most
+    ``_stage_bounds``' most."""
     wpb, stage = ck.staged_block(nd, NO, rows)
+    least, most = _stage_bounds(nd, rows)
     assert 1 <= wpb <= ck.WALKERS_MAX_STAGED
-    assert stage % 32 == 0 and 32 * (NO + 1) <= stage <= (NO + 1) * ((nd + 31) // 32 * 32)
+    assert stage % 32 == 0 and least <= stage <= most
     assert ck.staged_smem_bytes(nd, NO, rows, wpb, stage) <= ck.ROW_SMEM_BYTES
     if wpb < ck.WALKERS_MAX_STAGED:
-        assert ck.staged_smem_bytes(nd, NO, rows, wpb + 1, 32 * (NO + 1)) > ck.ROW_SMEM_BYTES
+        assert ck.staged_smem_bytes(nd, NO, rows, wpb + 1, least) > ck.ROW_SMEM_BYTES
     for w in range(1, ck.WALKERS_MAX_STAGED + 1):  # every block size the sweep may ask for
         per_sm, st = ck.stage_floats(nd, NO, rows, w)
         if per_sm:
